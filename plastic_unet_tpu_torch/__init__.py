@@ -1,0 +1,46 @@
+"""plastic_unet_tpu_torch — the PyTorch/CUDA port of ``plastic_unet_tpu``.
+
+The JAX package stays the reference; this package re-implements its serving
+path (UNetPRes forward with a zero trace, the best-threshold search on
+validation, masks, RLE strings and ``submission.csv``) in PyTorch, with the
+TPU's Pallas kernels replaced by CUDA kernels written for Hopper
+(``csrc/``, built with ``nvcc`` for ``sm_90a`` on first use).
+
+Module paths mirror the JAX package, so each module has its counterpart:
+
+  - models.unet_res.UNetPRes      <-> plastic_unet_tpu.models.unet_res
+  - models.blocks                 <-> plastic_unet_tpu.models.blocks (residual family)
+  - ops.plasticity                <-> plastic_unet_tpu.ops.plasticity
+  - ops.plastic_head (csrc/plastic_head.cu) <-> ops.pallas_plastic
+  - ops.conv3x3 (csrc/conv3x3.cu) <-> ops.pallas_conv
+  - ops.residual_tail             <-> ops.pallas_trunk (forward)
+  - eval.evaluate, ops.iou, ops.losses, ops.rle, submit.inference,
+    submit.server, data.synthetic, utils.torch_interop, utils.precision
+
+Layout: images are NHWC ``(N, H, W, C)`` and masks ``(N, nbf, nbf)``, as in
+the JAX package; activations inside the model are contiguous NHWC tensors.
+
+Device rule: the entry points take ``device=None``, which means CUDA. On a
+host without CUDA they raise unless the caller passes ``device="cpu"``;
+there is no silent fallback to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means ``"cuda"``.
+
+    Raises ``RuntimeError`` when that is a CUDA device and CUDA is not
+    available; the CPU is used only when the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "plastic_unet_tpu_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return dev

@@ -1,0 +1,163 @@
+"""Residual-family conv blocks of UNetPRes (counterpart of the residual
+family in plastic_unet_tpu.models.blocks; reference unet_p_res.py:142-272).
+
+Activations are contiguous NHWC ``(B, H, W, C)`` tensors. Attribute names
+reproduce the reference state_dict keys (``dconv.0``, ``dconv.1.conv.1.conv``,
+``uconv.1.mconv.0`` ...), so reference ``.pth`` files load strictly.
+
+Where the JAX package leaves a conv to XLA, the port leaves it to cuDNN (in
+parity precision): each level's entry conv (Cin != C), the ConvTranspose and
+the 1x1 outconv, through a channels_last NCHW view of the NHWC tensor. The
+3x3 convs of every residual tail run on the conv3x3 kernel through
+ops.residual_tail. Weights and biases take the torch-default init
+(U(-1/sqrt(fan_in), 1/sqrt(fan_in))) from an explicit generator.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, hwio
+from plastic_unet_tpu_torch.ops.residual_tail import residual_tail
+
+
+def init_conv_(conv: nn.Module, generator: torch.Generator | None) -> None:
+    """torch-default init of a Conv2d / ConvTranspose2d from ``generator``:
+    kaiming_uniform(a=sqrt(5)) is U(-b, b) with b = 1/sqrt(fan_in), and the
+    bias uses the same bound (fan_in from dim 1 of the weight, as torch does)."""
+    w = conv.weight
+    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        for p in (conv.weight, conv.bias):
+            p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+
+
+def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """An nn.Conv2d / nn.ConvTranspose2d on NHWC ``x`` through cuDNN's
+    channels_last path; returns contiguous NHWC, as the kernels take it."""
+    y = conv(x.permute(0, 3, 1, 2))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/2 max-pool with floor semantics (torch MaxPool2d(2)) on NHWC."""
+    b, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    x = x[:, : 2 * h2, : 2 * w2, :].reshape(b, h2, 2, w2, 2, c)
+    return x.amax(dim=(2, 4))
+
+
+def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
+    """Pad/crop NHWC ``x`` to (target_h, target_w) with the reference's
+    arithmetic: left/top gets diff//2 (floor), right/bottom int(diff/2)
+    (truncation); negative diffs crop, as torch F.pad does."""
+    dh, dw = target_h - x.shape[1], target_w - x.shape[2]
+    top, bottom = dh // 2, int(dh / 2)
+    left, right = dw // 2, int(dw / 2)
+    if top or bottom or left or right:
+        x = F.pad(x, (0, 0, left, right, top, bottom))
+    return x
+
+
+def channel_dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """torch Dropout2d on NHWC: one keep/drop draw per (sample, channel),
+    survivors scaled by 1/(1-rate). A no-op in eval mode, which is all the
+    serving path runs."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand((x.shape[0], 1, 1, x.shape[3]), device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+class ConvModule(nn.Module):
+    """conv3x3 [+ReLU] (reference conv_module); in and out channels equal."""
+
+    def __init__(self, features: int, activation: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(features, features, 3, padding=1)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3x3(x, hwio(self.conv.weight), self.conv.bias, relu_out=self.activation)
+
+
+class ResidualBlock(nn.Module):
+    """ReLU -> conv_module -> conv_module(no act), + skip (reference
+    residual_block). The reference's leading ``nn.ReLU(inplace=True)``
+    mutates the block input, so the skip it adds is relu(input)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        # Index 0 is the (parameter-free) ReLU, kept so the keys are conv.1 / conv.2.
+        self.conv = nn.ModuleList([nn.ReLU(), ConvModule(features), ConvModule(features, activation=False)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c1, c2 = self.conv[1].conv, self.conv[2].conv
+        y = conv3x3(x, hwio(c1.weight), c1.bias, relu_in=True, relu_out=True)
+        return conv3x3(y, hwio(c2.weight), c2.bias, x, relu_res=True)
+
+    def tail_params(self) -> tuple:
+        c1, c2 = self.conv[1].conv, self.conv[2].conv
+        return c1.weight, c1.bias, c2.weight, c2.bias
+
+
+def _trunk(in_features: int, features: int) -> nn.ModuleList:
+    """Sequential(Conv2d, residual_block, residual_block, ReLU) of down/middle."""
+    return nn.ModuleList([
+        nn.Conv2d(in_features, features, 3, padding=1),
+        ResidualBlock(features),
+        ResidualBlock(features),
+        nn.ReLU(),
+    ])
+
+
+def _trunk_forward(seq: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    x = conv_nhwc(seq[0], x)
+    return residual_tail(x, *seq[1].tail_params(), *seq[2].tail_params())
+
+
+class DownRes(nn.Module):
+    """conv3x3 -> 2x residual -> ReLU (reference down)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.dconv = _trunk(in_features, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _trunk_forward(self.dconv, x)
+
+
+class Middle(nn.Module):
+    """The same trunk as DownRes (reference middle)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.mconv = _trunk(in_features, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _trunk_forward(self.mconv, x)
+
+
+class UpRes(nn.Module):
+    """ConvT(k3, s2, VALID) -> pad/crop to skip -> cat[x, skip] ->
+    channel dropout -> middle (reference up; its middle never uses
+    batch_norm)."""
+
+    def __init__(self, in_features: int, features: int, dropout_ratio: float):
+        super().__init__()
+        self.dconv = nn.ConvTranspose2d(in_features, features, 3, stride=2)
+        # Index 0 is the Dropout2d of the reference's Sequential (no parameters).
+        self.uconv = nn.ModuleList([nn.Dropout2d(dropout_ratio), Middle(in_features, features)])
+        self.dropout_ratio = dropout_ratio
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = conv_nhwc(self.dconv, x)
+        x = pad_to_match(x, skip.shape[1], skip.shape[2])
+        x = torch.cat([x, skip], dim=-1)
+        x = channel_dropout(x, self.dropout_ratio, self.training)
+        return self.uconv[1](x)
