@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Time the conv3x3 kernel and the serving path of several checkouts of this
+repository on one CUDA card, one after the other in one run:
+
+    mkdir -p build/parent && git archive HEAD~1 | tar -x -C build/parent
+    python3 kernel_ab.py build/parent . . build/parent
+
+Each argument is a directory that holds a checkout (its own
+``plastic_unet_tpu_torch`` package and ``csrc/``); each is built and timed in
+a process of its own, in the order given. Two cards may run at two power
+limits, so two versions are compared only within one run, and the order
+A B B A shows how far the card drifts meanwhile.
+
+Per checkout it prints device times (ms; CUDA events while the device is
+kept busy, median of 20, chip_smoke.time_ms) of one conv3x3 launch at the five
+UNetPRes level shapes, B=1 and B=128, and the serving rate of the neurons=16
+predictor on 4 chunks of 128 tiles (host clock, median of 3).
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+
+def time_checkout(label: str) -> int:
+    """Runs with the checkout as the working directory."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import LEVELS, B, time_ms  # this script's neighbour: the same clock for every checkout
+
+    sys.path.insert(0, os.getcwd())  # the package of the checkout, not of this script's directory
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, hwio
+    from plastic_unet_tpu_torch.submit.server import MaskPredictor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"[{label}] {smi}", flush=True)
+    with torch.inference_mode():
+        for b in (1, B):
+            for hw, c in LEVELS:
+                x, k, bias = rnd(b, hw, hw, c), hwio(rnd(c, c, 3, 3) * 0.05), rnd(c)
+                ms = time_ms(lambda: conv3x3(x, k, bias, relu_in=True))[0]
+                print(f"[{label}] conv3x3 B={b} {hw}x{hw}x{c}: {ms:.4f} ms", flush=True)
+    model = UNetPRes(neurons=16, nbf=101, rule="oja", generator=torch.Generator().manual_seed(0))
+    pred = MaskPredictor(model, threshold=0.5).warmup()
+    xs = np.random.default_rng(2).random((4 * B, 101, 101), dtype=np.float32)
+    pred.predict_probs(xs[:B])
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pred.predict_probs(xs)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    sec = float(np.median(secs))
+    print(f"[{label}] serving neurons=16 chunk {B}: {4 * B / sec:.1f} tiles/s ({sec / 4 * 1e3:.3f} ms per chunk)",
+          flush=True)
+    return 0
+
+
+def main(argv: list[str]) -> int:
+    if argv[:1] == ["--one"]:
+        return time_checkout(argv[1])
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for i, tree in enumerate(argv):
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", f"{i}:{tree}"], cwd=tree, check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -2,9 +2,12 @@
 
 The JAX package stays the reference; this package re-implements its serving
 path (UNetPRes forward with a zero trace, the best-threshold search on
-validation, masks, RLE strings and ``submission.csv``) in PyTorch, with the
-TPU's Pallas kernels replaced by CUDA kernels written for Hopper
-(``csrc/``, built with ``nvcc`` for ``sm_90a`` on first use).
+validation, masks, RLE strings and ``submission.csv``) and its
+reference-parity training step (the B=1 lifetime loop with the detached
+trace, BCE, Adam and a per-sample StepLR; lanes for B>1) in PyTorch, with
+the TPU's Pallas kernels, forward and backward, replaced by CUDA kernels
+written for Hopper (``csrc/``, built with ``nvcc`` for ``sm_90a`` on first
+use).
 
 Module paths mirror the JAX package, so each module has its counterpart:
 
@@ -12,8 +15,12 @@ Module paths mirror the JAX package, so each module has its counterpart:
   - models.blocks                 <-> plastic_unet_tpu.models.blocks (residual family)
   - ops.plasticity                <-> plastic_unet_tpu.ops.plasticity
   - ops.plastic_head (csrc/plastic_head.cu) <-> ops.pallas_plastic
-  - ops.conv3x3 (csrc/conv3x3.cu) <-> ops.pallas_conv
-  - ops.residual_tail             <-> ops.pallas_trunk (forward)
+  - ops.conv3x3 (csrc/conv3x3.cu) <-> ops.pallas_conv, and the input-gradient
+    passes of ops.pallas_trunk's backward
+  - ops.conv3x3_wgrad (csrc/conv3x3_wgrad.cu) <-> the weight- and
+    bias-gradient passes of ops.pallas_trunk's backward
+  - ops.residual_tail             <-> ops.pallas_trunk (forward and backward)
+  - train.loop, train.optimizer   <-> plastic_unet_tpu.train.loop, .optimizer
   - eval.evaluate, ops.iou, ops.losses, ops.rle, submit.inference,
     submit.server, data.synthetic, utils.torch_interop, utils.precision
 
@@ -23,6 +30,10 @@ the JAX package; activations inside the model are contiguous NHWC tensors.
 Device rule: the entry points take ``device=None``, which means CUDA. On a
 host without CUDA they raise unless the caller passes ``device="cpu"``;
 there is no silent fallback to the CPU.
+
+Tests on the CPU: ``python -m pytest tests/test_torch_*.py -q`` (port
+against JAX, the training trajectory included). On the card:
+``python3 chip_smoke.py`` (phases 7-10 are the training path).
 """
 
 from __future__ import annotations

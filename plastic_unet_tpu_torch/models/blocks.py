@@ -9,7 +9,8 @@ Where the JAX package leaves a conv to XLA, the port leaves it to cuDNN (in
 parity precision): each level's entry conv (Cin != C), the ConvTranspose and
 the 1x1 outconv, through a channels_last NCHW view of the NHWC tensor. The
 3x3 convs of every residual tail run on the conv3x3 kernel through
-ops.residual_tail. Weights and biases take the torch-default init
+ops.residual_tail, forward and backward; the cuDNN layers, pool, pad, cat
+and dropout differentiate through autograd. Weights and biases take the torch-default init
 (U(-1/sqrt(fan_in), 1/sqrt(fan_in))) from an explicit generator.
 """
 
@@ -21,7 +22,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, hwio
 from plastic_unet_tpu_torch.ops.residual_tail import residual_tail
 
 
@@ -64,42 +64,41 @@ def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     return x
 
 
-def channel_dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def channel_dropout(x: torch.Tensor, rate: float, training: bool,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
     """torch Dropout2d on NHWC: one keep/drop draw per (sample, channel),
-    survivors scaled by 1/(1-rate). A no-op in eval mode, which is all the
-    serving path runs."""
+    survivors scaled by 1/(1-rate). A no-op in eval mode (it draws nothing),
+    which is all the serving path runs. The draws come from ``generator``,
+    which lives on ``x``'s device; the global generator is never used."""
     if not training or rate == 0.0:
         return x
-    keep = torch.rand((x.shape[0], 1, 1, x.shape[3]), device=x.device) >= rate
+    if generator is None:
+        raise ValueError("channel_dropout: training with dropout needs an explicit torch.Generator "
+                         "on the input's device")
+    keep = torch.rand((x.shape[0], 1, 1, x.shape[3]), device=x.device, generator=generator) >= rate
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 class ConvModule(nn.Module):
-    """conv3x3 [+ReLU] (reference conv_module); in and out channels equal."""
+    """The parameters of a conv3x3 [+ReLU] (reference conv_module), under
+    the reference's key ``conv``; ops.residual_tail does the math."""
 
-    def __init__(self, features: int, activation: bool = True):
+    def __init__(self, features: int):
         super().__init__()
         self.conv = nn.Conv2d(features, features, 3, padding=1)
-        self.activation = activation
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3(x, hwio(self.conv.weight), self.conv.bias, relu_out=self.activation)
 
 
 class ResidualBlock(nn.Module):
-    """ReLU -> conv_module -> conv_module(no act), + skip (reference
-    residual_block). The reference's leading ``nn.ReLU(inplace=True)``
-    mutates the block input, so the skip it adds is relu(input)."""
+    """The parameters of ReLU -> conv_module -> conv_module(no act), + skip
+    (reference residual_block). The reference's leading
+    ``nn.ReLU(inplace=True)`` mutates the block input, so the skip it adds is
+    relu(input). A trunk's two blocks run as one ops.residual_tail, forward
+    and backward; the block has no forward of its own."""
 
     def __init__(self, features: int):
         super().__init__()
         # Index 0 is the (parameter-free) ReLU, kept so the keys are conv.1 / conv.2.
-        self.conv = nn.ModuleList([nn.ReLU(), ConvModule(features), ConvModule(features, activation=False)])
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c1, c2 = self.conv[1].conv, self.conv[2].conv
-        y = conv3x3(x, hwio(c1.weight), c1.bias, relu_in=True, relu_out=True)
-        return conv3x3(y, hwio(c2.weight), c2.bias, x, relu_res=True)
+        self.conv = nn.ModuleList([nn.ReLU(), ConvModule(features), ConvModule(features)])
 
     def tail_params(self) -> tuple:
         c1, c2 = self.conv[1].conv, self.conv[2].conv
@@ -155,9 +154,10 @@ class UpRes(nn.Module):
         self.uconv = nn.ModuleList([nn.Dropout2d(dropout_ratio), Middle(in_features, features)])
         self.dropout_ratio = dropout_ratio
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = conv_nhwc(self.dconv, x)
         x = pad_to_match(x, skip.shape[1], skip.shape[2])
         x = torch.cat([x, skip], dim=-1)
-        x = channel_dropout(x, self.dropout_ratio, self.training)
+        x = channel_dropout(x, self.dropout_ratio, self.training, generator)
         return self.uconv[1](x)

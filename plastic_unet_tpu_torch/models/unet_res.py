@@ -92,25 +92,29 @@ class UNetPRes(nn.Module):
         """Batched zero trace (reference initialZeroHebb)."""
         return torch.zeros((batch, self.nbf, self.nbf), device=device)
 
-    def forward(self, x: torch.Tensor, hebb: torch.Tensor) -> PlasticOutput:
+    def forward(self, x: torch.Tensor, hebb: torch.Tensor,
+                generator: torch.Generator | None = None) -> PlasticOutput:
+        """``generator`` (on ``x``'s device) feeds the channel dropout in
+        train mode; eval mode draws nothing and needs none. A training
+        caller passes the trace detached (train.loop does)."""
         if x.dim() == 3:  # unbatched convenience input
             x = x[None]
             hebb = hebb[None] if hebb.dim() == 2 else hebb
         x = x.contiguous()
-        tr, r = self.training, self.dropout_ratio
+        tr, r, g = self.training, self.dropout_ratio, generator
         xc1 = self.conv1(x)
-        x1 = channel_dropout(max_pool_2x2(xc1), r / 2, tr)
+        x1 = channel_dropout(max_pool_2x2(xc1), r / 2, tr, g)
         xc2 = self.conv2(x1)
-        x2 = channel_dropout(max_pool_2x2(xc2), r, tr)
+        x2 = channel_dropout(max_pool_2x2(xc2), r, tr, g)
         xc3 = self.conv3(x2)
-        x3 = channel_dropout(max_pool_2x2(xc3), r, tr)
+        x3 = channel_dropout(max_pool_2x2(xc3), r, tr, g)
         xc4 = self.conv4(x3)
-        x4 = channel_dropout(max_pool_2x2(xc4), r, tr)
+        x4 = channel_dropout(max_pool_2x2(xc4), r, tr, g)
         x5 = self.mid(x4)
-        u = self.uconv4(x5, xc4)
-        u = self.uconv3(u, xc3)
-        u = self.uconv2(u, xc2)
-        u = self.uconv1(u, xc1)
+        u = self.uconv4(x5, xc4, g)
+        u = self.uconv3(u, xc3, g)
+        u = self.uconv2(u, xc2, g)
+        u = self.uconv1(u, xc1, g)
         out = conv_nhwc(self.outc.conv, u)  # (B, H, W, n_classes)
 
         b = out.shape[0]

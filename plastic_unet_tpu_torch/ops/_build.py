@@ -101,16 +101,6 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
-def require_no_grad(what: str, *tensors) -> None:
-    """The CUDA kernels have no backward yet: refuse inputs that autograd
-    would track, rather than return outputs that silently carry no grad."""
-    import torch
-
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{what}: the CUDA kernel has no backward yet; call it under "
-                           "torch.no_grad() or torch.inference_mode()")
-
-
 def ptr(t) -> ctypes.c_void_p:
     """Device pointer of a tensor (None passes NULL)."""
     return ctypes.c_void_p(None if t is None else t.data_ptr())

@@ -5,11 +5,24 @@ of plastic_unet_tpu.ops.pallas_conv; source ``csrc/conv3x3.cu``).
 
 x: (B, H, W, Cin) contiguous; w_hwio: (3, 3, Cin, Cout), the tap-major
 layout the kernel reads (:func:`hwio` makes it from torch's (Cout, Cin, 3, 3));
-bias: (Cout,); residual: (B, H, W, Cout) or None. On CUDA tensors
+bias: (Cout,) or None; residual: (B, H, W, Cout) or None. On CUDA tensors
 :func:`conv3x3` launches the kernel or raises; on CPU tensors it runs
 :func:`conv3x3_plain`, which sums the 9 shifted taps as matmuls, the form
-of the TPU kernel's im2col. The kernel has no backward yet: a CUDA call on
-tensors that autograd tracks raises.
+of the TPU kernel's im2col.
+
+The same kernel is the input-gradient pass of the convolution
+(:func:`conv3x3_dgrad`; conv^T == conv(flip(W)) for SAME/stride 1, the
+``g.conv(d, wf)`` lines of plastic_unet_tpu.ops.pallas_trunk's backward):
+
+    out = (conv(d * (in_gate > 0), flip(w)) + residual) * (gate > 0)
+
+It reads the forward's ``w_hwio`` tap-reversed and transposed in place, so no
+flipped copy is made, and returns the masked ``d`` beside ``out`` when
+``in_gate`` is given (the kernel writes it once, as it loads it).
+
+These wrappers are the building blocks of ops.residual_tail and stand
+outside autograd, like ops.conv3x3_wgrad: the differentiable entry point is
+ops.residual_tail.residual_tail, whose autograd.Function chains them.
 """
 
 from __future__ import annotations
@@ -22,7 +35,7 @@ import torch.nn.functional as F
 from plastic_unet_tpu_torch.ops import _build
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"conv3x3_forward": [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _I, _V]}
+_SIGNATURES = {"conv3x3_forward": [_V] * 8 + [_I] * 9 + [_V]}
 
 
 def hwio(weight: torch.Tensor) -> torch.Tensor:
@@ -30,7 +43,7 @@ def hwio(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 1, 0).contiguous()
 
 
-def conv3x3_plain(x, w_hwio, bias, residual=None, *, relu_in=False, relu_res=False, relu_out=False):
+def conv3x3_plain(x, w_hwio, bias=None, residual=None, *, relu_in=False, relu_res=False, relu_out=False):
     """The plain PyTorch version of the kernel (any device)."""
     if relu_in:
         x = torch.relu(x)
@@ -41,49 +54,83 @@ def conv3x3_plain(x, w_hwio, bias, residual=None, *, relu_in=False, relu_res=Fal
         for kx in range(3):
             t = torch.matmul(xp[:, ky:ky + h, kx:kx + w, :], w_hwio[ky, kx])
             y = t if y is None else y + t
-    y = y + bias
+    if bias is not None:
+        y = y + bias
     if residual is not None:
         y = y + (torch.relu(residual) if relu_res else residual)
     return torch.relu(y) if relu_out else y
 
 
-def _check(x, w_hwio, bias, residual):
+def conv3x3_dgrad_plain(d, w_hwio, residual=None, *, gate=None, in_gate=None):
+    """The plain PyTorch version of :func:`conv3x3_dgrad` (any device)."""
+    masked = None
+    if in_gate is not None:
+        d = masked = d * (in_gate > 0).to(d.dtype)
+    y = conv3x3_plain(d, w_hwio.flip(0, 1).transpose(2, 3), None, residual)
+    if gate is not None:
+        y = y * (gate > 0).to(y.dtype)
+    return y, masked
+
+
+def _launch(x, w_hwio, bias, residual, *, relu_in=False, relu_res=False, relu_out=False,
+            flip=False, gate=None, in_gate=None):
+    """Check the operands, launch the kernel, return (out, masked input or None)."""
     if x.dim() != 4:
         raise ValueError(f"conv3x3: x must be (B, H, W, Cin), got {tuple(x.shape)}")
     b, h, w, cin = x.shape
-    if w_hwio.dim() != 4 or tuple(w_hwio.shape[:3]) != (3, 3, cin):
-        raise ValueError(f"conv3x3: w_hwio must be (3, 3, {cin}, Cout), got {tuple(w_hwio.shape)}")
-    cout = w_hwio.shape[3]
-    if tuple(bias.shape) != (cout,):
-        raise ValueError(f"conv3x3: bias must be ({cout},), got {tuple(bias.shape)}")
-    if residual is not None and tuple(residual.shape) != (b, h, w, cout):
-        raise ValueError(f"conv3x3: residual must be {(b, h, w, cout)}, got {tuple(residual.shape)}")
-    for t in (x, w_hwio, bias) + (() if residual is None else (residual,)):
+    want_w = "(3, 3, Cout, %d)" % cin if flip else "(3, 3, %d, Cout)" % cin
+    if w_hwio.dim() != 4 or tuple(w_hwio.shape[:2]) != (3, 3) or w_hwio.shape[3 if flip else 2] != cin:
+        raise ValueError(f"conv3x3: w_hwio must be {want_w}, got {tuple(w_hwio.shape)}")
+    cout = w_hwio.shape[2 if flip else 3]
+    shapes = (("bias", bias, (cout,)), ("residual", residual, (b, h, w, cout)),
+              ("gate", gate, (b, h, w, cout)), ("in_gate", in_gate, (b, h, w, cin)))
+    for name, t, shape in shapes:
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"conv3x3: {name} must be {shape}, got {tuple(t.shape)}")
+    for t in (x, w_hwio) + tuple(t for _, t, _ in shapes if t is not None):
         if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError("conv3x3: inputs must be contiguous float32 on one CUDA device")
     if b > 65535 or min(b, h, w, cin, cout) < 1:
         raise ValueError(f"conv3x3: unsupported shape {(b, h, w, cin, cout)}")
-    return b, h, w, cin, cout
-
-
-def conv3x3(x, w_hwio, bias, residual=None, *, relu_in=False, relu_res=False, relu_out=False):
-    """(B, H, W, Cout) output; see the module docstring."""
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w_hwio, bias, residual, relu_in=relu_in, relu_res=relu_res, relu_out=relu_out)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"conv3x3: no kernel for device {x.device}")
-    _build.require_no_grad("conv3x3", x, w_hwio, bias, residual)
-    b, h, w, cin, cout = _check(x, w_hwio, bias, residual)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    masked = None if in_gate is None else torch.empty_like(x)
     lib = _build.library("conv3x3", _SIGNATURES)
     with torch.cuda.device(x.device):
         code = lib.conv3x3_forward(
-            _build.ptr(x), _build.ptr(w_hwio), _build.ptr(bias), _build.ptr(residual), _build.ptr(out),
-            b, h, w, cin, cout, int(relu_in), int(relu_res), int(relu_out), _build.stream_of(x),
+            _build.ptr(x), _build.ptr(in_gate), _build.ptr(w_hwio), _build.ptr(bias), _build.ptr(residual),
+            _build.ptr(gate), _build.ptr(out), _build.ptr(masked),
+            b, h, w, cin, cout, int(relu_in), int(relu_res), int(relu_out), int(flip), _build.stream_of(x),
         )
     _build.check(code, "conv3x3")
+    return out, masked
+
+
+def conv3x3(x, w_hwio, bias=None, residual=None, *, relu_in=False, relu_res=False, relu_out=False):
+    """(B, H, W, Cout) output; see the module docstring. Outside autograd;
+    CUDA tensors launch the kernel or raise, CPU tensors take the plain version."""
+    flags = dict(relu_in=relu_in, relu_res=relu_res, relu_out=relu_out)
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w_hwio, bias, residual, **flags)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"conv3x3: no kernel for device {x.device}")
+    out, _ = _launch(x, w_hwio, bias, residual, **flags)
     conv3x3.launches += 1
     return out
 
 
+def conv3x3_dgrad(d, w_hwio, residual=None, *, gate=None, in_gate=None):
+    """Input gradient of ``conv(., w_hwio)`` at the output gradient ``d``
+    (B, H, W, Cout), with the reverse chain's masks fused (module docstring):
+    returns ``(out (B, H, W, Cin), d * (in_gate > 0) or None)``. Outside
+    autograd; CUDA tensors launch the kernel or raise."""
+    if d.device.type == "cpu":
+        return conv3x3_dgrad_plain(d, w_hwio, residual, gate=gate, in_gate=in_gate)
+    if d.device.type != "cuda":
+        raise RuntimeError(f"conv3x3_dgrad: no kernel for device {d.device}")
+    res = _launch(d, w_hwio, None, residual, flip=True, gate=gate, in_gate=in_gate)
+    conv3x3_dgrad.launches += 1
+    return res
+
+
 conv3x3.launches = 0
+conv3x3_dgrad.launches = 0

@@ -5,9 +5,14 @@ plastic_unet_tpu.ops.pallas_plastic; source ``csrc/plastic_head.cu``).
 and returns ``(activ, activout, new_hebb)``. On CUDA tensors it launches the
 kernel, once for the whole batch; on CPU tensors it runs the plain version,
 ops.plasticity.plastic_head_logits, which is also what the kernel is held
-against on the card. The forward has no autograd: serving needs none, and
-the JAX package's backward of this head is itself not a kernel; a CUDA
-call on tensors that autograd tracks raises.
+against on the card.
+
+Gradient, as in the JAX package (its ``custom_vjp``): the forward launches
+the kernel and keeps the primals; the backward is autograd of the plain
+version at those primals, a few (nbf, nbf) matrix products that the JAX
+package also leaves outside any kernel. ``new_hebb`` is an output like the
+others; a training step that feeds the loss from ``activ`` or ``activout``
+alone sends no gradient to ``eta``.
 """
 
 from __future__ import annotations
@@ -26,18 +31,13 @@ _SIGNATURES = {"plastic_head_forward": [_V, _V, _V, _V, _V, _V, _V, _V, _I, _I, 
 plastic_head_plain = plastic_head_logits  # the kernel's plain PyTorch version (any device)
 
 
-def plastic_head(w, alpha, eta, activin, hebb, *, rule: str = "hebb", alfa_type: str = "free"):
-    """(activ, activout, new_hebb), each ``(B, nbf, nbf)``.
-
-    w: (nbf, nbf); alpha: (nbf, nbf), or one element for a yoked scalar;
-    eta: (1,); activin, hebb: (B, nbf, nbf). A CUDA input launches the
-    kernel or raises; only CPU inputs take the plain version."""
-    check_head_args(rule, alfa_type)
+def _forward(w, alpha, eta, activin, hebb, rule, alfa_type):
+    """The head outside autograd: the kernel on CUDA tensors (or an
+    exception), the plain version on CPU tensors."""
     if activin.device.type == "cpu":
         return plastic_head_plain(w, alpha, eta, activin, hebb, rule=rule, alfa_type=alfa_type)
     if activin.device.type != "cuda":
         raise RuntimeError(f"plastic_head: no kernel for device {activin.device}")
-    _build.require_no_grad("plastic_head", w, alpha, eta, activin, hebb)
     if activin.dim() != 3 or activin.shape[1] != activin.shape[2]:
         raise ValueError(f"plastic_head: activin must be (B, nbf, nbf), got {tuple(activin.shape)}")
     b, n, _ = activin.shape
@@ -64,6 +64,38 @@ def plastic_head(w, alpha, eta, activin, hebb, *, rule: str = "hebb", alfa_type:
     _build.check(code, "plastic_head")
     plastic_head.launches += 1
     return activ, activout, new_hebb
+
+
+class _PlasticHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, alpha, eta, activin, hebb, rule, alfa_type):
+        ctx.rule, ctx.alfa_type = rule, alfa_type
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(w, alpha, eta, activin, hebb)
+        return _forward(w, alpha, eta, activin, hebb, rule, alfa_type)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        primals = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        used = [(i, ct) for i, ct in enumerate(cts) if ct is not None]
+        wanted = [p for p in primals if p.requires_grad]
+        grads = iter(())
+        if used and wanted:
+            with torch.enable_grad():
+                outs = plastic_head_plain(*primals, rule=ctx.rule, alfa_type=ctx.alfa_type)
+                grads = iter(torch.autograd.grad([outs[i] for i, _ in used], wanted, [ct for _, ct in used],
+                                                 allow_unused=True))
+        return tuple(next(grads, None) if p.requires_grad else None for p in primals) + (None, None)
+
+
+def plastic_head(w, alpha, eta, activin, hebb, *, rule: str = "hebb", alfa_type: str = "free"):
+    """(activ, activout, new_hebb), each ``(B, nbf, nbf)``; differentiable.
+
+    w: (nbf, nbf); alpha: (nbf, nbf), or one element for a yoked scalar;
+    eta: (1,); activin, hebb: (B, nbf, nbf). A CUDA input launches the
+    kernel or raises; only CPU inputs take the plain version."""
+    check_head_args(rule, alfa_type)
+    return _PlasticHead.apply(w, alpha, eta, activin, hebb, rule, alfa_type)
 
 
 plastic_head.launches = 0

@@ -8,6 +8,14 @@
 
 The hand-written kernels of this package accumulate in plain fp32 FMAs in
 either mode; the policy governs only what is left to cuBLAS and cuDNN.
+
+:func:`training_numerics` is what the training step runs under: "parity"
+plus ``torch.backends.cudnn.deterministic``. Without it cuDNN may pick
+backward algorithms that add with atomics, and two runs of the same step on
+the same card differ in the last bits of the entry convs' and transposed
+convs' gradients; with it (and the package's own deterministic kernels) a
+step, eager or replayed from a CUDA graph, gives the same bits every time,
+which exact resume depends on.
 """
 
 from __future__ import annotations
@@ -32,3 +40,15 @@ def matmul_precision(policy: str):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def training_numerics():
+    """True fp32 ("parity") plus deterministic cuDNN algorithms, restored on exit."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with matmul_precision("parity"):
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = prev

@@ -87,6 +87,15 @@ def state_dict_from_jax_params(params: Mapping, name_map: dict | None = None) ->
     return out
 
 
+def trace_from_jax(hebb) -> torch.Tensor:
+    """The JAX package's trace ``(B, nbf, nbf)`` (any array numpy can read)
+    as a float32 tensor on the CPU, for a TrainState's ``hebb``."""
+    arr = np.array(hebb, dtype=np.float32, copy=True, order="C")
+    if arr.ndim != 3 or arr.shape[1] != arr.shape[2]:
+        raise ValueError(f"trace_from_jax: the trace must be (B, nbf, nbf), got {arr.shape}")
+    return torch.from_numpy(arr)
+
+
 def load_pth(path: str, key: str | None = None) -> dict:
     """Read a reference ``.pth`` onto the CPU. ``key`` picks one entry of a
     training checkpoint (e.g. ``"model"``) instead of a bare state_dict."""

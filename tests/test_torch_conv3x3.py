@@ -1,14 +1,18 @@
 """The port's 3x3 conv (plain version, as a CPU tensor takes it), with every
-fused flag, against the JAX package's Pallas conv3x3_flat in interpret mode."""
+fused flag, against the JAX package's Pallas conv3x3_flat in interpret mode;
+its input-gradient form and its weight gradient against jax.vjp of
+lax.conv_general_dilated."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from plastic_unet_tpu.ops.pallas_conv import conv3x3_flat, flatten_hw, pack_weights, unflatten_hw
-from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, hwio
+from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dgrad, hwio
+from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, wgrad_plan
 
 torch.set_num_threads(2)
 
@@ -56,3 +60,107 @@ def test_hwio_layout():
     k = hwio(w)
     assert k.shape == (3, 3, 3, 2) and k.is_contiguous()
     assert k[1, 2, 0, 1] == w[1, 0, 1, 2]
+
+
+def _jax_conv_vjp(x, w_hwio, d):
+    """(dx, dw, db) of the batched SAME conv + bias at the output gradient d."""
+    def conv(x, w, b):
+        dn = jax.lax.conv_dimension_numbers(x.shape, w.shape, ("NHWC", "HWIO", "NHWC"))
+        return jax.lax.conv_general_dilated(x, w, (1, 1), "SAME", dimension_numbers=dn) + b
+
+    b = jnp.zeros((w_hwio.shape[3],), jnp.float32)
+    _, vjp = jax.vjp(conv, jnp.asarray(x), jnp.asarray(w_hwio), b)
+    return [np.asarray(t) for t in vjp(jnp.asarray(d))]
+
+
+def _close(got, ref, what):
+    np.testing.assert_allclose(got, ref, atol=3e-5 * max(1.0, float(np.abs(ref).max())), err_msg=what)
+
+
+GRAD_SHAPES = [(13, 16, 16), (9, 8, 24), (25, 32, 32), (6, 40, 16)]  # (hw, cin, cout)
+# (in_gate, residual, gate): the four lines of the tail's reverse chain, and none
+DGRAD_FLAGS = [(False, False, False), (True, False, True), (False, True, True), (False, False, True),
+               (True, True, True)]
+
+
+@pytest.mark.parametrize("flags", DGRAD_FLAGS)
+@pytest.mark.parametrize("hw,cin,cout", GRAD_SHAPES)
+def test_dgrad_matches_jax_vjp(hw, cin, cout, flags):
+    use_in_gate, use_res, use_gate = flags
+    rng = np.random.default_rng(hw + cin * 7 + cout)
+    x = rng.standard_normal((2, hw, hw, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32)
+    d = rng.standard_normal((2, hw, hw, cout)).astype(np.float32)
+    in_gate = rng.standard_normal(d.shape).astype(np.float32)
+    res = rng.standard_normal(x.shape).astype(np.float32)
+    gate = rng.standard_normal(x.shape).astype(np.float32)
+    launches = conv3x3_dgrad.launches
+    got, masked = conv3x3_dgrad(
+        torch.from_numpy(d), torch.from_numpy(w), torch.from_numpy(res) if use_res else None,
+        gate=torch.from_numpy(gate) if use_gate else None, in_gate=torch.from_numpy(in_gate) if use_in_gate else None)
+    assert conv3x3_dgrad.launches == launches  # CPU tensors never launch the kernel
+    d_eff = d * (in_gate > 0) if use_in_gate else d
+    ref = _jax_conv_vjp(x, w, d_eff)[0]
+    if use_res:
+        ref = ref + res
+    if use_gate:
+        ref = ref * (gate > 0)
+    _close(got.numpy(), ref, "dx")
+    if use_in_gate:
+        np.testing.assert_array_equal(masked.numpy(), d_eff)
+    else:
+        assert masked is None
+
+
+@pytest.mark.parametrize("relu_in", [False, True])
+@pytest.mark.parametrize("layout", ["hwio", "oihw"])
+@pytest.mark.parametrize("hw,cin,cout", GRAD_SHAPES)
+def test_wgrad_matches_jax_vjp(hw, cin, cout, layout, relu_in):
+    rng = np.random.default_rng(hw * 3 + cin + cout)
+    x = rng.standard_normal((2, hw, hw, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32)
+    d = rng.standard_normal((2, hw, hw, cout)).astype(np.float32)
+    launches = conv3x3_wgrad.launches
+    dw, db = conv3x3_wgrad(torch.from_numpy(x), torch.from_numpy(d), relu_in=relu_in, layout=layout)
+    assert conv3x3_wgrad.launches == launches
+    _, dw_ref, db_ref = _jax_conv_vjp(np.maximum(x, 0) if relu_in else x, w, d)
+    if layout == "oihw":
+        dw_ref = np.transpose(dw_ref, (3, 2, 0, 1))
+    _close(dw.numpy(), dw_ref, "dw")
+    _close(db.numpy(), db_ref, "db")
+
+
+@pytest.mark.parametrize("relu_out", [False, True])
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_dgrad_and_wgrad_compose_to_the_conv_gradient(relu_in, relu_out):
+    """One dgrad and one wgrad, with the ReLU masks as gates the way the
+    residual tail's reverse chain passes them, against jax.grad of
+    relu?(conv(relu?(x)) + b)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 9, 9, 8)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 8, 16)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal(16) * 0.1).astype(np.float32)
+    ct = rng.standard_normal((2, 9, 9, 16)).astype(np.float32)
+
+    def jloss(x, w, b):
+        dn = jax.lax.conv_dimension_numbers(x.shape, w.shape, ("NHWC", "HWIO", "NHWC"))
+        y = jax.lax.conv_general_dilated(jax.nn.relu(x) if relu_in else x, w, (1, 1), "SAME",
+                                         dimension_numbers=dn) + b
+        return jnp.sum((jax.nn.relu(y) if relu_out else y) * ct)
+
+    refs = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (x, w, b)))
+    tx, tw, tb, tct = (torch.from_numpy(a) for a in (x, w, b, ct))
+    out = conv3x3(tx, tw, tb, relu_in=relu_in, relu_out=relu_out)
+    dx, dy = conv3x3_dgrad(tct, tw, gate=tx if relu_in else None, in_gate=out if relu_out else None)
+    dw, db = conv3x3_wgrad(tx, tct if dy is None else dy, relu_in=relu_in)
+    for name, got, ref in zip(("x", "w", "b"), (dx, dw, db), refs):
+        _close(got.numpy(), np.asarray(ref), name)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(1, 101, 101, 16, 16), (128, 101, 101, 16, 16), (1, 6, 6, 256, 256),
+                                            (128, 6, 6, 256, 256), (1, 12, 12, 128, 128), (3, 25, 25, 64, 64)])
+def test_wgrad_plan_covers_every_tile(b, h, w, cin, cout):
+    chunks, per = wgrad_plan(b, h, w, cin, cout)
+    tiles = b * -(-h // 8) * -(-w // 8)
+    assert chunks >= 1 and (chunks - 1) * per < tiles <= chunks * per  # no empty chunk, none left out
+    assert chunks * -(-cin // 16) * -(-cout // (16 if cout <= 16 else 32)) <= max(2 * 528, tiles)

@@ -249,7 +249,7 @@ def test_build_reports_missing_nvcc_and_cuda_errors(tmp_path, monkeypatch):
         _build.check(209, "conv3x3")
     _build.check(0, "conv3x3")
     names = sorted(p.name.split(".")[0] for p in _build.CSRC.glob("*.cu"))
-    assert names == ["conv3x3", "plastic_head"]
+    assert names == ["conv3x3", "conv3x3_wgrad", "plastic_head"]
 
 
 def test_numpy_iou_metrics_match_jax():
@@ -269,12 +269,12 @@ def test_numpy_iou_metrics_match_jax():
 
 
 def test_no_source_of_the_port_imports_jax():
-    """Static check of every import statement in the port and chip_smoke.py."""
+    """Static check of every import statement in the port, chip_smoke.py and kernel_ab.py."""
     import ast
     import glob
 
     files = glob.glob(os.path.join(REPO, "plastic_unet_tpu_torch", "**", "*.py"), recursive=True)
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")]
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -291,15 +291,28 @@ def test_no_source_of_the_port_imports_jax():
 
 
 def test_kernels_refuse_autograd_tracked_inputs():
-    """The CUDA kernels have no backward yet; the guard their wrappers call
-    refuses tracked inputs instead of returning grad-less outputs."""
+    """The wrappers used to refuse inputs that autograd tracks; they now
+    differentiate. Nothing refuses a tracked tensor any more, neither entry
+    point the model calls (residual_tail, plastic_head) returns an output
+    without a grad_fn for one, and under no_grad / inference_mode nothing is
+    tracked."""
     from plastic_unet_tpu_torch.ops import _build
+    from plastic_unet_tpu_torch.ops.plastic_head import plastic_head
+    from plastic_unet_tpu_torch.ops.residual_tail import residual_tail
 
-    p = torch.zeros(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        _build.require_no_grad("conv3x3", torch.zeros(3), p, None)
-    with torch.no_grad():
-        _build.require_no_grad("conv3x3", p)
-    with torch.inference_mode():
-        _build.require_no_grad("conv3x3", p)
-    _build.require_no_grad("conv3x3", torch.zeros(3), None)
+    assert not hasattr(_build, "require_no_grad")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 5, 5, 4, generator=g)
+    ws = [torch.randn(4, 4, 3, 3, generator=g).requires_grad_() for _ in range(4)]
+    bs = [torch.zeros(4, requires_grad=True) for _ in range(4)]
+    tail_args = [x] + [t for pair in zip(ws, bs) for t in pair]
+    n = 5
+    head_args = (torch.randn(n, n, generator=g).requires_grad_(), torch.rand(n, n, generator=g),
+                 torch.full((1,), 0.01), torch.randn(1, n, n, generator=g), torch.zeros(1, n, n))
+    calls = [lambda: residual_tail(*tail_args), lambda: plastic_head(*head_args)[0]]
+    for call in calls:
+        assert call().grad_fn is not None
+        with torch.no_grad():
+            assert call().grad_fn is None
+        with torch.inference_mode():
+            assert not call().requires_grad

@@ -53,8 +53,6 @@ def test_max_pool_floor():
 
 BLOCKS = {
     # name: (jax module, port module, flax head, torch prefix, input shapes)
-    "residual": (lambda: jblocks.ResidualBlock(8), lambda: tblocks.ResidualBlock(8),
-                 ("DownRes_1", "ResidualBlock_0"), "conv2.dconv.1", [(2, 9, 9, 8)]),
     "down": (lambda: jblocks.DownRes(3, 8), lambda: tblocks.DownRes(3, 8),
              ("DownRes_0",), "conv1", [(2, 11, 11, 3)]),
     "middle": (lambda: jblocks.Middle(8, 16), lambda: tblocks.Middle(8, 16),
@@ -79,6 +77,19 @@ def test_block_forward(name):
     with torch.no_grad():
         got = tmod(*map(torch.from_numpy, xs)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_residual_block_holds_the_reference_keys():
+    """A residual block is a holder of parameters under the reference's keys
+    (its math runs in ops.residual_tail); tail_params gives them in the
+    order the tail takes them."""
+    blk = tblocks.ResidualBlock(8)
+    assert list(blk.state_dict()) == ["conv.1.conv.weight", "conv.1.conv.bias", "conv.2.conv.weight",
+                                      "conv.2.conv.bias"]
+    w1, b1, w2, b2 = blk.tail_params()
+    assert w1 is blk.conv[1].conv.weight and b1 is blk.conv[1].conv.bias
+    assert w2 is blk.conv[2].conv.weight and b2 is blk.conv[2].conv.bias
+    assert tuple(w1.shape) == (8, 8, 3, 3) and tuple(b2.shape) == (8,)
 
 
 def _jax_model_and_params(rule, alfa_type, plastic, seed):
@@ -146,12 +157,19 @@ def test_checkpoint_101px_matches_jax():
 
 def test_channel_dropout_contract():
     """Dropout2d: whole (sample, channel) planes dropped, survivors scaled
-    by 1/(1-rate); eval mode and rate 0 are the identity."""
+    by 1/(1-rate); eval mode and rate 0 are the identity and draw nothing;
+    the draws come from an explicit generator, never the global one."""
     x = torch.ones(4, 5, 5, 64)
-    torch.manual_seed(0)
-    y = tblocks.channel_dropout(x, 0.5, training=True)
+    gen = torch.Generator().manual_seed(0)
+    y = tblocks.channel_dropout(x, 0.5, training=True, generator=gen)
     planes = y.permute(0, 3, 1, 2).reshape(4 * 64, 25)
     assert all(bool((r == r[0]).all()) for r in planes)
     assert set(planes[:, 0].tolist()) == {0.0, 2.0}
-    assert tblocks.channel_dropout(x, 0.5, training=False) is x
-    assert tblocks.channel_dropout(x, 0.0, training=True) is x
+    again = tblocks.channel_dropout(x, 0.5, training=True, generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(y, again, rtol=0, atol=0)
+    state = gen.get_state()
+    assert tblocks.channel_dropout(x, 0.5, training=False, generator=gen) is x
+    assert tblocks.channel_dropout(x, 0.0, training=True, generator=gen) is x
+    assert torch.equal(gen.get_state(), state)
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
+        tblocks.channel_dropout(x, 0.5, training=True)
