@@ -35,7 +35,8 @@ is non-zero:
      five level shapes, B=1 and B=128: the conv's input-gradient form with
      the four flag sets of the tail's reverse chain plus Cin != Cout cases,
      the weight/bias gradient (ReLU on load on and off, both layouts, two
-     runs bit-identical, and the error against a float64 run), the whole
+     runs bit-identical, and the error against a float64 run; also at
+     WGRAD_EDGE_CASES, where its tiling could break), the whole
      tail backward (dx0 and 8 parameter gradients) against the plain chain
      and against autograd of the plain forward. Same tolerance as phase 2.
   8. the training path at full width: UNetPRes neurons=16, nbf=101, seeded
@@ -54,14 +55,16 @@ is non-zero:
      capture) and nothing in its replays.
   10. times: dgrad, wgrad and the tail backward at the five shapes, B=1 and
      B=128, with plain, bound and the library call (F.conv2d with flipped
-     weights; aten.convolution_backward for weight and bias); the B=1 step
+     weights; aten.convolution_backward for weight and bias, also under
+     training_numerics: deterministic cuDNN, as the training step runs it); the B=1 step
      eager and as a graph (steps/s, device time; the eager step's idle
      share is derived from the replay's device time), lanes=128 samples/s,
      and the step's FLOP bound.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
 belong to the entry's "shape"; keys ending in _b1 or _b128 give the same at
-the other batch size, max_abs_err_all_shapes the largest over every case.
+the other batch size, max_abs_err_all_shapes the largest over every case,
+library_det_ms the library call under deterministic cuDNN.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -91,6 +94,8 @@ COUNTED = ("plastic_head", "residual_tail", "conv3x3", "residual_tail_backward",
 STEP_COUNTS = {"plastic_head": 1, "residual_tail": 9, "conv3x3": 36, "residual_tail_backward": 9,
                "conv3x3_dgrad": 36, "conv3x3_wgrad": 36}  # per eager training step
 TRAIN_STEPS, TRAIN_LR, TRAIN_GAMMA, TRAIN_STEP_SIZE = 8, 1e-3, 0.5, 3
+WGRAD_EDGE_CASES = [(3, 13, 7, 40, 24), (5, 6, 6, 256, 256), (2, 101, 101, 16, 16), (8, 101, 101, 16, 16),
+                    (2, 9, 9, 6, 10)]  # (B, H, W, Cin, Cout) beyond the level shapes; phase 7
 
 
 def check(ok: bool, msg: str) -> None:
@@ -480,14 +485,33 @@ def phase_backward_kernels(dev):
                 dw, _ = conv3x3_wgrad(x, d)
                 dw_plain, _ = conv3x3_wgrad_plain(x, d)
                 dw64, _ = conv3x3_wgrad_plain(x.double(), d.double())
-                print(f"[7] conv3x3_wgrad B={b} {hw}x{hw}x{cin}: {b * hw * hw} terms per sum, grid "
-                      f"{wgrad_plan(b, hw, hw, cin, cout)} (chunks, tiles per chunk); against float64 "
+                print(f"[7] conv3x3_wgrad B={b} {hw}x{hw}x{cin}: {b * hw * hw} terms per sum, plan "
+                      f"{tuple(wgrad_plan(b, hw, hw, cin, cout))}; against float64 "
                       f"max|diff| kernel {float((dw.double() - dw64).abs().max()):.3g}, plain "
                       f"{float((dw_plain.double() - dw64).abs().max()):.3g} (max|ref| {float(dw64.abs().max()):.3g})",
                       flush=True)
+    # Where the wgrad tiling can break: a non-square image with channels that fill no tile
+    # (40 -> 24), samples per tile not dividing B, H not a multiple of the tile's rows (B=8: 3
+    # rows; B=2 takes 202 chunks), and the 4-byte staging path (Cin, Cout not multiples of 4).
+    for b, h, w, cin, cout in WGRAD_EDGE_CASES:
+        x, d = rnd(b, h, w, cin), rnd(b, h, w, cout)
+        for relu_in in (False, True):
+            for layout in ("hwio", "oihw"):
+                dw, db = conv3x3_wgrad(x, d, relu_in=relu_in, layout=layout)
+                dw_ref, db_ref = conv3x3_wgrad_plain(x, d, relu_in=relu_in, layout=layout)
+                what = f"B={b} {h}x{w} {cin}->{cout} relu_in={relu_in} {layout}"
+                hold("conv3x3_wgrad", b, None, what + " dW", dw, dw_ref)
+                hold("conv3x3_wgrad", b, None, what + " db", db, db_ref)
+                dw2, db2 = conv3x3_wgrad(x, d, relu_in=relu_in, layout=layout)
+                check(bool(torch.equal(dw, dw2)) and bool(torch.equal(db, db2)),
+                      f"conv3x3_wgrad {what}: two runs differ in some bit")
+                n_wgrad += 1
+        print(f"[7] conv3x3_wgrad B={b} {h}x{w} {cin}->{cout}: plan {tuple(wgrad_plan(b, h, w, cin, cout))} "
+              f"(ci_t, co_t, rows, samples, tiles, chunks, smem)", flush=True)
     print(f"[7] conv3x3_dgrad {n_dgrad} cases (B=1 and B={B}; 5 level shapes + 2 Cin!=Cout; 4 flag sets): "
           f"max|diff| {errs.all('conv3x3_dgrad'):.3g}, over max(1, max|ref|) {rel['conv3x3_dgrad']:.3g}", flush=True)
-    print(f"[7] conv3x3_wgrad {n_wgrad} cases (relu_in x layout), each bit-identical over two runs: "
+    print(f"[7] conv3x3_wgrad {n_wgrad} cases (relu_in x layout; level shapes, 2 Cin!=Cout and "
+          f"{len(WGRAD_EDGE_CASES)} edge cases), each bit-identical over two runs: "
           f"max|diff| {errs.all('conv3x3_wgrad'):.3g} (at B={B}, 101x101x16: {errs.at('conv3x3_wgrad', B):.3g}; at B=1 "
           f"there: {errs.at('conv3x3_wgrad', 1):.3g}), over max(1, max|ref|) {rel['conv3x3_wgrad']:.3g}", flush=True)
 
@@ -758,7 +782,7 @@ def phase_training_times(dev, name, errs, step_counts, fwd_table):
     from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, conv3x3_wgrad_plain
     from plastic_unet_tpu_torch.ops.residual_tail import residual_tail_backward, residual_tail_backward_plain
     from plastic_unet_tpu_torch.train.loop import GraphTrainStep, create_train_state, make_train_step
-    from plastic_unet_tpu_torch.utils.precision import matmul_precision
+    from plastic_unet_tpu_torch.utils.precision import matmul_precision, training_numerics
 
     pk = peaks(name)
     g = torch.Generator(device=dev).manual_seed(11)
@@ -794,6 +818,10 @@ def phase_training_times(dev, name, errs, step_counts, fwd_table):
                         d_nchw, x_nchw, ws[0], [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
                         [False, True, True]))[0],
                 )
+                with training_numerics():  # the algorithm the training step's own cuDNN layers get
+                    wgrad["library_det_ms"] = time_ms(lambda: torch.ops.aten.convolution_backward(
+                        d_nchw, x_nchw, ws[0], [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                        [False, True, True]))[0]
                 wgrad["bound_ms"], wgrad["bound_by"] = bound_ms(conv_flops, 2 * act + 4 * (9 * c * c + c), pk)
                 tail = dict(
                     ms=time_ms(lambda: residual_tail_backward(gout, *saved, *ks))[0],
@@ -804,6 +832,8 @@ def phase_training_times(dev, name, errs, step_counts, fwd_table):
                 tail["bound_ms"], tail["bound_by"] = bound_ms(8 * conv_flops, 7 * act + 8 * 4 * (9 * c * c + c), pk)
                 for kname, e in (("conv3x3_dgrad", dgrad), ("conv3x3_wgrad", wgrad), ("residual_tail_backward", tail)):
                     lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
+                    if "library_det_ms" in e:
+                        lib += f" (deterministic cuDNN {e['library_det_ms']:.4f} ms)"
                     print(f"[10] {kname} {hw}x{hw}x{c} B={b}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
                           f"library {lib}, bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
                           f"{e['bound_ms'] / e['ms']:.1%} of bound", flush=True)
@@ -886,6 +916,8 @@ def phase_training_times(dev, name, errs, step_counts, fwd_table):
                  "library_ms": one["library_ms"], "shape": f"B=1 {hw0}x{hw0}x{c0}"}
         entry.update({f"{k}_b{B}": many[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         entry.update({f"max_abs_err_b{B}": errs.at(kname, B), "max_abs_err_all_shapes": errs.all(kname)})
+        if "library_det_ms" in one:
+            entry.update({"library_det_ms": one["library_det_ms"], f"library_det_ms_b{B}": many["library_det_ms"]})
         kernels.append(entry)
     return kernels
 

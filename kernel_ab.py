@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the conv3x3 kernel and the serving path of several checkouts of this
-repository on one CUDA card, one after the other in one run:
+"""Time the conv3x3 and conv3x3_wgrad kernels and the serving path of several
+checkouts of this repository on one CUDA card, one after the other in one run:
 
-    mkdir -p build/parent && git archive HEAD~1 | tar -x -C build/parent
+    mkdir -p build/parent && git archive HEAD plastic_unet_tpu_torch | tar -x -C build/parent
     python3 kernel_ab.py build/parent . . build/parent
 
 Each argument is a directory that holds a checkout (its own
@@ -12,8 +12,10 @@ limits, so two versions are compared only within one run, and the order
 A B B A shows how far the card drifts meanwhile.
 
 Per checkout it prints device times (ms; CUDA events while the device is
-kept busy, median of 20, chip_smoke.time_ms) of one conv3x3 launch at the five
-UNetPRes level shapes, B=1 and B=128, and the serving rate of the neurons=16
+kept busy, median of 20, chip_smoke.time_ms) of one conv3x3 launch and of
+one conv3x3_wgrad call (ReLU on load, torch layout, as the tail's backward
+calls it; its second stage included) at the five UNetPRes level shapes, B=1
+and B=128, and the serving rate of the neurons=16
 predictor on 4 chunks of 128 tiles (host clock, median of 3).
 """
 
@@ -35,6 +37,7 @@ def time_checkout(label: str) -> int:
     sys.path.insert(0, os.getcwd())  # the package of the checkout, not of this script's directory
     from plastic_unet_tpu_torch.models.unet_res import UNetPRes
     from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, hwio
+    from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad
     from plastic_unet_tpu_torch.submit.server import MaskPredictor
 
     dev = torch.device("cuda")
@@ -52,6 +55,11 @@ def time_checkout(label: str) -> int:
                 x, k, bias = rnd(b, hw, hw, c), hwio(rnd(c, c, 3, 3) * 0.05), rnd(c)
                 ms = time_ms(lambda: conv3x3(x, k, bias, relu_in=True))[0]
                 print(f"[{label}] conv3x3 B={b} {hw}x{hw}x{c}: {ms:.4f} ms", flush=True)
+        for b in (1, B):
+            for hw, c in LEVELS:
+                x, d = rnd(b, hw, hw, c), rnd(b, hw, hw, c)
+                ms = time_ms(lambda: conv3x3_wgrad(x, d, relu_in=True, layout="oihw"))[0]
+                print(f"[{label}] conv3x3_wgrad B={b} {hw}x{hw}x{c}: {ms:.4f} ms", flush=True)
     model = UNetPRes(neurons=16, nbf=101, rule="oja", generator=torch.Generator().manual_seed(0))
     pred = MaskPredictor(model, threshold=0.5).warmup()
     xs = np.random.default_rng(2).random((4 * B, 101, 101), dtype=np.float32)

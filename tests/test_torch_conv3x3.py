@@ -12,7 +12,8 @@ import jax.numpy as jnp
 
 from plastic_unet_tpu.ops.pallas_conv import conv3x3_flat, flatten_hw, pack_weights, unflatten_hw
 from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dgrad, hwio
-from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, wgrad_plan
+from plastic_unet_tpu_torch.ops.conv3x3_wgrad import (ONE_CHUNK_PIXELS, TARGET_BLOCKS, _stage_bytes, conv3x3_wgrad,
+                                                       wgrad_plan)
 
 torch.set_num_threads(2)
 
@@ -158,9 +159,29 @@ def test_dgrad_and_wgrad_compose_to_the_conv_gradient(relu_in, relu_out):
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", [(1, 101, 101, 16, 16), (128, 101, 101, 16, 16), (1, 6, 6, 256, 256),
-                                            (128, 6, 6, 256, 256), (1, 12, 12, 128, 128), (3, 25, 25, 64, 64)])
+                                            (128, 6, 6, 256, 256), (1, 12, 12, 128, 128), (3, 25, 25, 64, 64),
+                                            (5, 6, 6, 256, 256), (8, 101, 101, 16, 16), (2, 101, 101, 16, 16),
+                                            (3, 13, 7, 40, 24), (128, 12, 12, 128, 128), (40, 6, 6, 64, 64)])
 def test_wgrad_plan_covers_every_tile(b, h, w, cin, cout):
-    chunks, per = wgrad_plan(b, h, w, cin, cout)
-    tiles = b * -(-h // 8) * -(-w // 8)
-    assert chunks >= 1 and (chunks - 1) * per < tiles <= chunks * per  # no empty chunk, none left out
-    assert chunks * -(-cin // 16) * -(-cout // (16 if cout <= 16 else 32)) <= max(2 * 528, tiles)
+    """The kernel's tiles, decoded as the kernel decodes them, cover every
+    (sample, row) once; chunks are runs of whole tiles, none empty; the grid
+    fills the card as far as the work allows; a block fits shared memory."""
+    p = wgrad_plan(b, h, w, cin, cout)
+    assert p.samples == 1 or p.rows == h  # several samples per tile only whole
+    tps = -(-h // p.rows)
+    assert p.tiles == -(-b // p.samples) * tps
+    seen = np.zeros((b, h), int)
+    for t in range(p.tiles):
+        b0, y0 = (t // tps) * p.samples, (t % tps) * p.rows
+        seen[b0:b0 + p.samples, y0:y0 + p.rows] += 1
+    assert (seen == 1).all()
+    bounds = [k * p.tiles // p.chunks for k in range(p.chunks + 1)]
+    assert 1 <= p.chunks <= p.tiles and all(hi > lo for lo, hi in zip(bounds, bounds[1:]))
+    slices = -(-cin // p.ci_t) * -(-cout // p.co_t)
+    if b * h * w <= ONE_CHUNK_PIXELS:
+        assert p.chunks == 1  # one launch
+    else:
+        assert p.chunks == min(p.tiles, max(1, TARGET_BLOCKS // slices))
+        assert p.chunks * slices <= max(TARGET_BLOCKS, slices)
+    stages = 2 if p.tiles > p.chunks else 1
+    assert stages * _stage_bytes(w, p.ci_t, p.co_t, p.rows, p.samples) <= p.smem <= 232448
