@@ -12,9 +12,11 @@ is non-zero:
   2. every kernel against its plain PyTorch version on the card, at the
      shapes of the serving path (B=128) and of the training step (B=1):
      the plastic head (hebb/oja x free/yoked), the 3x3 conv at the five
-     level shapes with every flag combination plus Cin != Cout cases, the
-     residual tail at the five shapes. Tolerance max|diff| <= 1e-4 * max(1, max|ref|): fp32 sums
-     taken in another order over up to 9*256 terms.
+     level shapes with every flag combination plus Cin != Cout cases (B=128
+     takes the whole-sample tiles at 25^2, 12^2, 6^2; B=1 the square ones),
+     and at CONV_EDGE_CASES in both tile families, each bit-identical over two
+     runs; the residual tail at the five shapes. Tolerance max|diff| <= 1e-4 *
+     max(1, max|ref|): fp32 sums taken in another order over up to 9*256 terms.
   3. UNetPRes at full width (neurons=16, nbf=101, seeded weights; hebb and
      oja) and the committed epoch-225 oja checkpoint (neurons=8): B=8 on
      the card against the same weights on the CPU port (activout and the
@@ -33,7 +35,8 @@ is non-zero:
 
   7. the backward kernels against their plain versions on the card, at the
      five level shapes, B=1 and B=128: the conv's input-gradient form with
-     the four flag sets of the tail's reverse chain plus Cin != Cout cases,
+     the four flag sets of the tail's reverse chain plus Cin != Cout cases
+     (and CONV_EDGE_CASES in both tile families, bit-identical over two runs),
      the weight/bias gradient (ReLU on load on and off, both layouts, two
      runs bit-identical, and the error against a float64 run; also at
      WGRAD_EDGE_CASES, where its tiling could break), the whole
@@ -96,6 +99,8 @@ STEP_COUNTS = {"plastic_head": 1, "residual_tail": 9, "conv3x3": 36, "residual_t
 TRAIN_STEPS, TRAIN_LR, TRAIN_GAMMA, TRAIN_STEP_SIZE = 8, 1e-3, 0.5, 3
 WGRAD_EDGE_CASES = [(3, 13, 7, 40, 24), (5, 6, 6, 256, 256), (2, 101, 101, 16, 16), (8, 101, 101, 16, 16),
                     (2, 9, 9, 6, 10)]  # (B, H, W, Cin, Cout) beyond the level shapes; phase 7
+CONV_EDGE_CASES = [(5, 6, 6, 256, 256), (3, 12, 12, 128, 128), (3, 13, 7, 40, 24),
+                   (2, 9, 9, 6, 10)]  # conv3x3 and dgrad in both tile families; phases 2 and 7
 
 
 def check(ok: bool, msg: str) -> None:
@@ -206,7 +211,7 @@ def phase_device():
 # --------------------------------------------------------------------------- phase 2
 
 def phase_kernels(dev):
-    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, hwio
+    from plastic_unet_tpu_torch.ops.conv3x3 import FAMILIES, conv3x3, conv3x3_plain, conv3x3_plan, hwio
     from plastic_unet_tpu_torch.ops.plastic_head import plastic_head, plastic_head_plain
     from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_plain
 
@@ -248,6 +253,26 @@ def phase_kernels(dev):
             errs.note("conv3x3", e, b, hw if cin == cout else None)
     print(f"[2] conv3x3 {2 * len(cases)} cases (B={B} and B=1; 5 level shapes x 6 flag sets, 3 Cin!=Cout): "
           f"max|diff| {errs.all('conv3x3'):.3g}", flush=True)
+    # Where the tilings can break: samples per tile not dividing B, a non-square image with channels
+    # that fill no slice, the scalar paths (Cin, Cout not multiples of 4); each in both families.
+    for b, h, w_, cin, cout in CONV_EDGE_CASES:
+        plans = [conv3x3_plan(b, h, w_, cin, cout, family=f) for f in FAMILIES]
+        for plan in plans:
+            for relu_in, res_mode, relu_out in flag_sets:
+                xx = rnd(b, h, w_, cin)
+                wk = hwio(rnd(cout, cin, 3, 3, scale=1.0 / (3 * cin ** 0.5)))
+                bias = rnd(cout, scale=0.1)
+                res = None if res_mode is None else rnd(b, h, w_, cout)
+                kw = dict(relu_in=relu_in, relu_res=res_mode == "relu", relu_out=relu_out)
+                got = conv3x3(xx, wk, bias, res, plan=plan, **kw)
+                what = f"conv3x3 B={b} {h}x{w_} {cin}->{cout} {plan.family} {kw} res={res_mode}"
+                e, tol = max_err(got, conv3x3_plain(xx, wk, bias, res, **kw))
+                check(e <= tol, f"{what}: max|diff| {e:.3g} > {tol:.3g}")
+                check(bool(torch.equal(got, conv3x3(xx, wk, bias, res, plan=plan, **kw))),
+                      f"{what}: two runs differ in some bit")
+                errs.note("conv3x3", e, b, None)
+        print(f"[2] conv3x3 B={b} {h}x{w_} {cin}->{cout}, 6 flag sets, each bit-identical over two runs, plans "
+              f"{[tuple(p) for p in plans]}", flush=True)
 
     for b in (B, 1):
         for hw, c in LEVELS:
@@ -432,7 +457,7 @@ def tail_saved(args):
 
 
 def phase_backward_kernels(dev):
-    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_dgrad, conv3x3_dgrad_plain, hwio
+    from plastic_unet_tpu_torch.ops.conv3x3 import FAMILIES, conv3x3_dgrad, conv3x3_dgrad_plain, conv3x3_plan, hwio
     from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, conv3x3_wgrad_plain, wgrad_plan
     from plastic_unet_tpu_torch.ops.residual_tail import (residual_tail_backward, residual_tail_backward_plain,
                                                           residual_tail_plain)
@@ -490,6 +515,27 @@ def phase_backward_kernels(dev):
                       f"max|diff| kernel {float((dw.double() - dw64).abs().max()):.3g}, plain "
                       f"{float((dw_plain.double() - dw64).abs().max()):.3g} (max|ref| {float(dw64.abs().max()):.3g})",
                       flush=True)
+    for b, h, w, cin, cout in CONV_EDGE_CASES:  # the dgrad form where the tilings can break, both families
+        k = hwio(rnd(cout, cin, 3, 3, scale=1.0 / (3 * cin ** 0.5)))
+        d, in_gate = rnd(b, h, w, cout), rnd(b, h, w, cout)
+        res, gate = rnd(b, h, w, cin), rnd(b, h, w, cin)
+        for family in FAMILIES:
+            plan = conv3x3_plan(b, h, w, cout, cin, True, family=family)
+            for f_in, f_res, f_gate in dgrad_flags:
+                kw = dict(gate=gate if f_gate else None, in_gate=in_gate if f_in else None)
+                got, masked = conv3x3_dgrad(d, k, res if f_res else None, plan=plan, **kw)
+                ref, masked_ref = conv3x3_dgrad_plain(d, k, res if f_res else None, **kw)
+                what = f"B={b} {h}x{w} {cout}->{cin} {family} in_gate={f_in} res={f_res} gate={f_gate}"
+                hold("conv3x3_dgrad", b, None, what, got, ref)
+                again, masked2 = conv3x3_dgrad(d, k, res if f_res else None, plan=plan, **kw)
+                check(bool(torch.equal(got, again)), f"conv3x3_dgrad {what}: two runs differ in some bit")
+                if masked is not None:
+                    check(bool(torch.equal(masked, masked_ref)) and bool(torch.equal(masked, masked2)),
+                          f"conv3x3_dgrad {what}: masked input differs")
+                n_dgrad += 1
+        print(f"[7] conv3x3_dgrad B={b} {h}x{w} {cout}->{cin}, 4 flag sets, both families "
+              f"({conv3x3_plan(b, h, w, cout, cin, True)[0]} by the plan), each bit-identical over two runs",
+              flush=True)
     # Where the wgrad tiling can break: a non-square image with channels that fill no tile
     # (40 -> 24), samples per tile not dividing B, H not a multiple of the tile's rows (B=8: 3
     # rows; B=2 takes 202 chunks), and the 4-byte staging path (Cin, Cout not multiples of 4).
@@ -508,7 +554,8 @@ def phase_backward_kernels(dev):
                 n_wgrad += 1
         print(f"[7] conv3x3_wgrad B={b} {h}x{w} {cin}->{cout}: plan {tuple(wgrad_plan(b, h, w, cin, cout))} "
               f"(ci_t, co_t, rows, samples, tiles, chunks, smem)", flush=True)
-    print(f"[7] conv3x3_dgrad {n_dgrad} cases (B=1 and B={B}; 5 level shapes + 2 Cin!=Cout; 4 flag sets): "
+    print(f"[7] conv3x3_dgrad {n_dgrad} cases (B=1 and B={B}; 5 level shapes + 2 Cin!=Cout; "
+          f"{len(CONV_EDGE_CASES)} edge cases in both families; 4 flag sets): "
           f"max|diff| {errs.all('conv3x3_dgrad'):.3g}, over max(1, max|ref|) {rel['conv3x3_dgrad']:.3g}", flush=True)
     print(f"[7] conv3x3_wgrad {n_wgrad} cases (relu_in x layout; level shapes, 2 Cin!=Cout and "
           f"{len(WGRAD_EDGE_CASES)} edge cases), each bit-identical over two runs: "

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the conv3x3 and conv3x3_wgrad kernels and the serving path of several
+"""Time the conv3x3, conv3x3_dgrad and conv3x3_wgrad kernels and the serving path of several
 checkouts of this repository on one CUDA card, one after the other in one run:
 
     mkdir -p build/parent && git archive HEAD plastic_unet_tpu_torch | tar -x -C build/parent
@@ -12,15 +12,21 @@ limits, so two versions are compared only within one run, and the order
 A B B A shows how far the card drifts meanwhile.
 
 Per checkout it prints device times (ms; CUDA events while the device is
-kept busy, median of 20, chip_smoke.time_ms) of one conv3x3 launch and of
-one conv3x3_wgrad call (ReLU on load, torch layout, as the tail's backward
-calls it; its second stage included) at the five UNetPRes level shapes, B=1
-and B=128, and the serving rate of the neurons=16
-predictor on 4 chunks of 128 tiles (host clock, median of 3).
+kept busy, median of 20, chip_smoke.time_ms) of one conv3x3 launch, one
+conv3x3_dgrad launch (with in_gate and gate, as the tail's backward first
+calls it) and one conv3x3_wgrad call (ReLU on load, torch layout, as the
+tail's backward calls it; its second stage included) at the five UNetPRes
+level shapes, B=1 and B=128, and the serving rate of the neurons=16
+predictor on 4 chunks of 128 tiles (host clock, median of 3). Each conv3x3
+and dgrad line ends with a digest of the output bytes (for dgrad, of the
+output and the masked input) from inputs seeded by the shape: equal digests
+across checkouts are equal bits. Where a checkout's conv3x3 has whole-sample
+variants, each is also timed at the levels it can take, B=128.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import subprocess
 import sys
@@ -36,7 +42,7 @@ def time_checkout(label: str) -> int:
 
     sys.path.insert(0, os.getcwd())  # the package of the checkout, not of this script's directory
     from plastic_unet_tpu_torch.models.unet_res import UNetPRes
-    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, hwio
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dgrad, hwio
     from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad
     from plastic_unet_tpu_torch.submit.server import MaskPredictor
 
@@ -46,15 +52,48 @@ def time_checkout(label: str) -> int:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[{label}] {smi}", flush=True)
     with torch.inference_mode():
         for b in (1, B):
             for hw, c in LEVELS:
+                gen.manual_seed(1000 * hw + b)
                 x, k, bias = rnd(b, hw, hw, c), hwio(rnd(c, c, 3, 3) * 0.05), rnd(c)
                 ms = time_ms(lambda: conv3x3(x, k, bias, relu_in=True))[0]
-                print(f"[{label}] conv3x3 B={b} {hw}x{hw}x{c}: {ms:.4f} ms", flush=True)
+                print(f"[{label}] conv3x3 B={b} {hw}x{hw}x{c}: {ms:.4f} ms digest "
+                      f"{digest(conv3x3(x, k, bias, relu_in=True))}", flush=True)
+        for b in (1, B):
+            for hw, c in LEVELS:
+                gen.manual_seed(1000 * hw + b + 1)
+                d, k, out, pre = rnd(b, hw, hw, c), hwio(rnd(c, c, 3, 3) * 0.05), rnd(b, hw, hw, c), rnd(b, hw, hw, c)
+                ms = time_ms(lambda: conv3x3_dgrad(d, k, in_gate=out, gate=pre))[0]
+                print(f"[{label}] conv3x3_dgrad B={b} {hw}x{hw}x{c}: {ms:.4f} ms digest "
+                      f"{digest(*conv3x3_dgrad(d, k, in_gate=out, gate=pre))}", flush=True)
+        from plastic_unet_tpu_torch.ops import conv3x3 as conv_mod
+
+        for hw, c in LEVELS:  # each whole-sample variant where the checkout has them, at B=128
+            for v in getattr(conv_mod, "SAMPLE_VARIANTS", ()):
+                if hw * hw > conv_mod.SAMPLE_PIXELS:
+                    continue
+                gen.manual_seed(1000 * hw + B + 1)
+                d, k, out, pre = rnd(B, hw, hw, c), hwio(rnd(c, c, 3, 3) * 0.05), rnd(B, hw, hw, c), rnd(B, hw, hw, c)
+                try:
+                    pf = conv_mod.conv3x3_plan(B, hw, hw, c, c, family="sample", variant=v)
+                    pd = conv_mod.conv3x3_plan(B, hw, hw, c, c, True, family="sample", variant=v)
+                except ValueError:
+                    continue
+                fwd = time_ms(lambda: conv3x3(d, k, None, out, relu_in=True, relu_res=True, relu_out=True, plan=pf))[0]
+                dg = time_ms(lambda: conv3x3_dgrad(d, k, in_gate=out, gate=pre, plan=pd))[0]
+                print(f"[{label}] whole-sample variant (nt, tp) {v} B={B} {hw}x{hw}x{c}, {pf.samples} samples a tile, "
+                      f"{pf.blocks} blocks: conv3x3 (ReLU in, residual, ReLU out) {fwd:.4f} ms, conv3x3_dgrad "
+                      f"(in_gate, gate) {dg:.4f} ms", flush=True)
         for b in (1, B):
             for hw, c in LEVELS:
                 x, d = rnd(b, hw, hw, c), rnd(b, hw, hw, c)

@@ -54,8 +54,14 @@ class MaskPredictor:
         return preds.cpu().numpy()
 
     def predict_rle(self, images: np.ndarray, threshold: float | None = None) -> list[str]:
-        """Predict and RLE-encode (submission-format strings)."""
+        """Predict and RLE-encode (submission-format strings). A predictor
+        with a threshold binarizes at its own; ``threshold`` is then ignored,
+        a reference quirk kept on purpose."""
         thr = self.threshold if threshold is None else threshold
         if thr is None:
             raise ValueError("predict_rle requires a threshold")
+        # As the JAX predictor: with a threshold of its own, predict() has already
+        # binarized at self.threshold and the argument is not read.
+        if self.threshold is not None:
+            return encode_batch(self.predict(images).astype(np.uint8))
         return encode_batch(binarize(self.predict_probs(images), thr))

@@ -11,7 +11,8 @@ import jax
 import jax.numpy as jnp
 
 from plastic_unet_tpu.ops.pallas_conv import conv3x3_flat, flatten_hw, pack_weights, unflatten_hw
-from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dgrad, hwio
+from plastic_unet_tpu_torch.ops.conv3x3 import (NUM_SMS, SAMPLE_THREADS, SAMPLE_TN, SMEM_MAX, _sample_stage_floats,
+                                                conv3x3, conv3x3_dgrad, conv3x3_plan, hwio)
 from plastic_unet_tpu_torch.ops.conv3x3_wgrad import (ONE_CHUNK_PIXELS, TARGET_BLOCKS, _stage_bytes, conv3x3_wgrad,
                                                        wgrad_plan)
 
@@ -185,3 +186,67 @@ def test_wgrad_plan_covers_every_tile(b, h, w, cin, cout):
         assert p.chunks * slices <= max(TARGET_BLOCKS, slices)
     stages = 2 if p.tiles > p.chunks else 1
     assert stages * _stage_bytes(w, p.ci_t, p.co_t, p.rows, p.samples) <= p.smem <= 232448
+
+
+def _written(p, b, h, w, cout):
+    """How often the kernel's threads write each (b, y, x, co), decoded from
+    the plan as the kernel decodes blockIdx and threadIdx."""
+    if p.family == "tile":
+        th, tw = (16, 8) if p.nt == 16 else (8, 8)
+        ngr = p.nt // 4
+        tid = np.arange(128)
+        ng, pg = tid % ngr, tid // ngr
+        py, px = pg // (tw // 4), (pg % (tw // 4)) * 4
+        tiles_w = -(-w // tw)
+        bx, by, bz = np.meshgrid(np.arange(tiles_w * -(-h // th)), np.arange(-(-cout // p.nt)), np.arange(b),
+                                 indexing="ij")
+        oy = (bx // tiles_w * th)[..., None, None, None] + py[:, None, None]
+        ox = (bx % tiles_w * tw)[..., None, None, None] + px[:, None, None] + np.arange(4)[None, :, None]
+        n = (by * p.nt)[..., None, None, None] + (ng * 4)[:, None, None] + np.arange(4)[None, None, :]
+        bb, oy, ox, n = np.broadcast_arrays(bz[..., None, None, None], oy, ox, n)
+        ok = (oy < h) & (ox < w) & (n < cout)
+        flat = ((bb * h + oy) * w + ox) * cout + n
+    else:
+        ngr = p.nt // SAMPLE_TN
+        tid = np.arange(SAMPLE_THREADS)
+        ng, pg = tid % ngr, tid // ngr
+        bx, by = np.meshgrid(np.arange(-(-b // p.samples)), np.arange(-(-cout // p.nt)), indexing="ij")
+        b0 = (bx * p.samples)[..., None, None, None]
+        npix = np.minimum(p.samples, b - b0) * h * w
+        pix = pg[:, None, None] + np.arange(p.tp)[None, :, None] * (SAMPLE_THREADS // ngr)
+        n = (by * p.nt)[..., None, None, None] + (ng * SAMPLE_TN)[:, None, None] + np.arange(SAMPLE_TN)
+        b0, npix, pix, n = np.broadcast_arrays(b0, npix, pix, n)
+        ok = (pix < npix) & (n < cout)
+        flat = (b0 * h * w + pix) * cout + n
+    return np.bincount(flat[ok].ravel(), minlength=b * h * w * cout)
+
+
+_LEVEL_CASES = [(bb, hw, hw, c, c) for bb in (1, 128) for hw, c in
+                [(101, 16), (50, 32), (25, 64), (12, 128), (6, 256)]]
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("b,h,w,cin,cout", _LEVEL_CASES + [(5, 6, 6, 256, 256), (3, 13, 7, 40, 24),
+                                                           (2, 9, 9, 6, 10)])
+def test_conv3x3_plan_covers_every_output(b, h, w, cin, cout, flip):
+    """Every output is written exactly once by the plan's grid; B=1 and the
+    levels of side 50 and more keep the first design's routing; a block fits
+    shared memory. Cases the rule gives the square tiles are also decoded in
+    the whole-sample family, which the chip run holds at them too."""
+    p = conv3x3_plan(b, h, w, cin, cout, flip)
+    if b == 1 or h >= 50:
+        nt = 16 if cout <= 16 else 32
+        blocks = -(-h // (16 if nt == 16 else 8)) * -(-w // 8) * -(-cout // nt) * b
+        kg = 4 if blocks <= NUM_SMS and cin >= 64 else 2 if blocks <= NUM_SMS and cin >= 32 else 1
+        assert (p.family, p.nt, p.kg) == ("tile", nt, kg)
+    elif b == 128:
+        assert p.family == "sample"  # 25^2, 12^2, 6^2 at B=128
+    plans = [p] if p.family == "sample" or h * w > 625 else [p, conv3x3_plan(b, h, w, cin, cout, flip, family="sample")]
+    for q in plans:
+        assert (_written(q, b, h, w, cout) == 1).all()
+        assert q.smem <= SMEM_MAX
+        if q.family == "sample":
+            gate = q.samples * h * w * 16 if flip else 0
+            assert q.smem == 4 * (2 * _sample_stage_floats(h, w, q.samples, q.nt, flip) + gate)
+            cap = SAMPLE_THREADS // (q.nt // SAMPLE_TN) * q.tp
+            assert 1 <= q.samples * h * w <= cap

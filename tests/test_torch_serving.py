@@ -164,6 +164,24 @@ def test_predictor_on_cpu_matches_predict_masks():
     assert p.warmup() is p
 
 
+@pytest.mark.parametrize("own_threshold", [0.9, None])
+def test_predict_rle_threshold_contract_matches_jax(own_threshold):
+    """A predictor with a threshold of its own binarizes at it and ignores the
+    call's argument, as the JAX predictor does; without one the argument holds."""
+    from plastic_unet_tpu.submit.server import MaskPredictor as JaxMaskPredictor
+
+    jm = JaxUNetPRes(n_channels=1, n_classes=1, neurons=2, nbf=16)
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)), jm.initial_zero_hebb(1))["params"]
+    tm = UNetPRes(neurons=2, nbf=16)
+    tm.load_state_dict(tti.state_dict_from_jax_params(params), strict=True)
+    x = np.random.RandomState(0).rand(2, 16, 16).astype(np.float32)
+    ref = JaxMaskPredictor(jm, params, threshold=own_threshold).predict_rle(x, threshold=0.5005)
+    got = MaskPredictor(tm, threshold=own_threshold, device="cpu").predict_rle(x, threshold=0.5005)
+    assert got == ref
+    if own_threshold is not None:
+        assert ref[0] == ""  # the case where binarizing at the argument gave a non-empty mask
+
+
 def test_tta_views_not_ported():
     tm = UNetPRes(neurons=2, nbf=16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
