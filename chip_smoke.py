@@ -13,8 +13,9 @@ is non-zero:
      shapes of the serving path (B=128) and of the training step (B=1):
      the plastic head (hebb/oja x free/yoked), the 3x3 conv at the five
      level shapes with every flag combination plus Cin != Cout cases (B=128
-     takes the whole-sample tiles at 25^2, 12^2, 6^2; B=1 the square ones),
-     and at CONV_EDGE_CASES in both tile families, each bit-identical over two
+     takes the whole-sample tiles at 25^2, 12^2, 6^2; B=1 splits K across
+     blocks from 50^2 down, each such case bit-identical over two runs), and
+     at CONV_EDGE_CASES in all three families, each bit-identical over two
      runs; the residual tail at the five shapes. Tolerance max|diff| <= 1e-4 *
      max(1, max|ref|): fp32 sums taken in another order over up to 9*256 terms.
   3. UNetPRes at full width (neurons=16, nbf=101, seeded weights; hebb and
@@ -36,7 +37,8 @@ is non-zero:
   7. the backward kernels against their plain versions on the card, at the
      five level shapes, B=1 and B=128: the conv's input-gradient form with
      the four flag sets of the tail's reverse chain plus Cin != Cout cases
-     (and CONV_EDGE_CASES in both tile families, bit-identical over two runs),
+     (the split cases at B=1 and CONV_EDGE_CASES in all three families
+     bit-identical over two runs, the masked input equal to the plain one),
      the weight/bias gradient (ReLU on load on and off, both layouts, two
      runs bit-identical, and the error against a float64 run; also at
      WGRAD_EDGE_CASES, where its tiling could break), the whole
@@ -99,8 +101,9 @@ STEP_COUNTS = {"plastic_head": 1, "residual_tail": 9, "conv3x3": 36, "residual_t
 TRAIN_STEPS, TRAIN_LR, TRAIN_GAMMA, TRAIN_STEP_SIZE = 8, 1e-3, 0.5, 3
 WGRAD_EDGE_CASES = [(3, 13, 7, 40, 24), (5, 6, 6, 256, 256), (2, 101, 101, 16, 16), (8, 101, 101, 16, 16),
                     (2, 9, 9, 6, 10)]  # (B, H, W, Cin, Cout) beyond the level shapes; phase 7
-CONV_EDGE_CASES = [(5, 6, 6, 256, 256), (3, 12, 12, 128, 128), (3, 13, 7, 40, 24),
-                   (2, 9, 9, 6, 10)]  # conv3x3 and dgrad in both tile families; phases 2 and 7
+CONV_EDGE_CASES = [(5, 6, 6, 256, 256), (3, 12, 12, 128, 128), (3, 13, 7, 40, 24), (2, 9, 9, 6, 10),
+                   (1, 13, 7, 40, 24), (1, 9, 9, 48, 10),
+                   (2, 6, 6, 256, 256)]  # conv3x3 and dgrad in every family (tile, sample, split); phases 2 and 7
 
 
 def check(ok: bool, msg: str) -> None:
@@ -241,20 +244,28 @@ def phase_kernels(dev):
     cases = [(hw, c, c, flags) for hw, c in LEVELS for flags in flag_sets]
     cases += [(101, 8, 16, (True, "relu", True)), (50, 16, 32, (True, None, False)),
               (25, 40, 24, (False, "plain", True))]
-    for b in (B, 1):  # small grids (B=1) take the K-group variant
+    n_split = 0
+    for b in (B, 1):  # small grids (B=1) split K across blocks
         for hw, cin, cout, (relu_in, res_mode, relu_out) in cases:
             xx = rnd(b, hw, hw, cin)
             wk = hwio(rnd(cout, cin, 3, 3, scale=1.0 / (3 * cin ** 0.5)))
             bias = rnd(cout, scale=0.1)
             res = None if res_mode is None else rnd(b, hw, hw, cout)
             kw = dict(relu_in=relu_in, relu_res=res_mode == "relu", relu_out=relu_out)
-            e, tol = max_err(conv3x3(xx, wk, bias, res, **kw), conv3x3_plain(xx, wk, bias, res, **kw))
-            check(e <= tol, f"conv3x3 B={b} {hw}x{hw} {cin}->{cout} {kw} res={res_mode}: max|diff| {e:.3g} > {tol:.3g}")
+            got = conv3x3(xx, wk, bias, res, **kw)
+            what = f"conv3x3 B={b} {hw}x{hw} {cin}->{cout} {kw} res={res_mode}"
+            e, tol = max_err(got, conv3x3_plain(xx, wk, bias, res, **kw))
+            check(e <= tol, f"{what}: max|diff| {e:.3g} > {tol:.3g}")
+            if conv3x3_plan(b, hw, hw, cin, cout).family == "split":  # the arrival order must not show
+                check(bool(torch.equal(got, conv3x3(xx, wk, bias, res, **kw))), f"{what}: two runs differ in some bit")
+                n_split += 1
             errs.note("conv3x3", e, b, hw if cin == cout else None)
-    print(f"[2] conv3x3 {2 * len(cases)} cases (B={B} and B=1; 5 level shapes x 6 flag sets, 3 Cin!=Cout): "
-          f"max|diff| {errs.all('conv3x3'):.3g}", flush=True)
+    print(f"[2] conv3x3 {2 * len(cases)} cases (B={B} and B=1; 5 level shapes x 6 flag sets, 3 Cin!=Cout; "
+          f"{n_split} split across blocks, each bit-identical over two runs): max|diff| {errs.all('conv3x3'):.3g}",
+          flush=True)
     # Where the tilings can break: samples per tile not dividing B, a non-square image with channels
-    # that fill no slice, the scalar paths (Cin, Cout not multiples of 4); each in both families.
+    # that fill no slice, the scalar paths (Cin, Cout not multiples of 4), ranges of one and two
+    # slices; each in every family.
     for b, h, w_, cin, cout in CONV_EDGE_CASES:
         plans = [conv3x3_plan(b, h, w_, cin, cout, family=f) for f in FAMILIES]
         for plan in plans:
@@ -477,7 +488,7 @@ def phase_backward_kernels(dev):
 
     # (in_gate, residual, gate): the four lines of the reverse chain, and the bare pass
     dgrad_flags = [(True, False, True), (False, True, True), (False, False, True), (False, False, False)]
-    n_dgrad = n_wgrad = 0
+    n_dgrad = n_wgrad = n_split = 0
     for b in (1, B):
         cases = [(hw, c, c) for hw, c in LEVELS] + [(50, 16, 32), (25, 40, 24)]
         for hw, cin, cout in cases:
@@ -485,6 +496,7 @@ def phase_backward_kernels(dev):
             lvl = hw if cin == cout else None  # the error book keeps the level shapes apart
             d, x = rnd(b, hw, hw, cout), rnd(b, hw, hw, cin)
             in_gate, res, gate = rnd(b, hw, hw, cout), rnd(b, hw, hw, cin), rnd(b, hw, hw, cin)
+            split = conv3x3_plan(b, hw, hw, cout, cin, True).family == "split"
             for f_in, f_res, f_gate in dgrad_flags:
                 kw = dict(gate=gate if f_gate else None, in_gate=in_gate if f_in else None)
                 got, masked = conv3x3_dgrad(d, k, res if f_res else None, **kw)
@@ -494,6 +506,11 @@ def phase_backward_kernels(dev):
                 check((masked is None) == (masked_ref is None), f"conv3x3_dgrad {what}: masked input")
                 if masked is not None:
                     check(bool(torch.equal(masked, masked_ref)), f"conv3x3_dgrad {what}: masked input differs")
+                if split:  # the arrival order must not show
+                    again, masked2 = conv3x3_dgrad(d, k, res if f_res else None, **kw)
+                    check(bool(torch.equal(got, again)) and (masked is None or bool(torch.equal(masked, masked2))),
+                          f"conv3x3_dgrad B={b} {what}: two runs differ in some bit")
+                    n_split += 1
                 n_dgrad += 1
             for relu_in in (False, True):
                 for layout in ("hwio", "oihw"):
@@ -515,7 +532,7 @@ def phase_backward_kernels(dev):
                       f"max|diff| kernel {float((dw.double() - dw64).abs().max()):.3g}, plain "
                       f"{float((dw_plain.double() - dw64).abs().max()):.3g} (max|ref| {float(dw64.abs().max()):.3g})",
                       flush=True)
-    for b, h, w, cin, cout in CONV_EDGE_CASES:  # the dgrad form where the tilings can break, both families
+    for b, h, w, cin, cout in CONV_EDGE_CASES:  # the dgrad form where the tilings can break, every family
         k = hwio(rnd(cout, cin, 3, 3, scale=1.0 / (3 * cin ** 0.5)))
         d, in_gate = rnd(b, h, w, cout), rnd(b, h, w, cout)
         res, gate = rnd(b, h, w, cin), rnd(b, h, w, cin)
@@ -533,7 +550,7 @@ def phase_backward_kernels(dev):
                     check(bool(torch.equal(masked, masked_ref)) and bool(torch.equal(masked, masked2)),
                           f"conv3x3_dgrad {what}: masked input differs")
                 n_dgrad += 1
-        print(f"[7] conv3x3_dgrad B={b} {h}x{w} {cout}->{cin}, 4 flag sets, both families "
+        print(f"[7] conv3x3_dgrad B={b} {h}x{w} {cout}->{cin}, 4 flag sets, every family "
               f"({conv3x3_plan(b, h, w, cout, cin, True)[0]} by the plan), each bit-identical over two runs",
               flush=True)
     # Where the wgrad tiling can break: a non-square image with channels that fill no tile
@@ -555,7 +572,8 @@ def phase_backward_kernels(dev):
         print(f"[7] conv3x3_wgrad B={b} {h}x{w} {cin}->{cout}: plan {tuple(wgrad_plan(b, h, w, cin, cout))} "
               f"(ci_t, co_t, rows, samples, tiles, chunks, smem)", flush=True)
     print(f"[7] conv3x3_dgrad {n_dgrad} cases (B=1 and B={B}; 5 level shapes + 2 Cin!=Cout; "
-          f"{len(CONV_EDGE_CASES)} edge cases in both families; 4 flag sets): "
+          f"{len(CONV_EDGE_CASES)} edge cases in every family; 4 flag sets; {n_split} split across blocks at "
+          f"the level shapes, each bit-identical over two runs): "
           f"max|diff| {errs.all('conv3x3_dgrad'):.3g}, over max(1, max|ref|) {rel['conv3x3_dgrad']:.3g}", flush=True)
     print(f"[7] conv3x3_wgrad {n_wgrad} cases (relu_in x layout; level shapes, 2 Cin!=Cout and "
           f"{len(WGRAD_EDGE_CASES)} edge cases), each bit-identical over two runs: "

@@ -21,9 +21,14 @@ flipped copy is made, and returns the masked ``d`` beside ``out`` when
 ``in_gate`` is given (the kernel writes it once, as it loads it).
 
 :func:`conv3x3_plan` picks the kernel's tiling from the shapes alone:
-square pixel tiles of one sample (B=1, and every level of side 50 and
-more) or tiles of whole samples (25^2, 12^2 and 6^2 at B=128). Both keep one
-order of FMAs for every output, so they give the same bits.
+square pixel tiles of one sample (the levels of side 50 and more at B=128,
+and Cin below 32), tiles of whole samples (25^2, 12^2 and 6^2 at B=128), or,
+on grids no larger than the card (B=1), the split family: Cin's 16-channel
+slices cut into ranges, one block per (row band, Cout slice, range), the
+blocks of a tile one cluster that adds the ranges' partial sums in range
+order over distributed shared memory. The first two keep one order of FMAs
+for every output and give the same bits; the split family sums in its own
+fixed order, so its bits differ from theirs but not from run to run.
 
 These wrappers are the building blocks of ops.residual_tail and stand
 outside autograd, like ops.conv3x3_wgrad: the differentiable entry point is
@@ -33,6 +38,7 @@ ops.residual_tail.residual_tail, whose autograd.Function chains them.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -41,39 +47,51 @@ import torch.nn.functional as F
 from plastic_unet_tpu_torch.ops import _build
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"conv3x3_forward": [_V] * 8 + [_I] * 15 + [_V]}
-NUM_SMS = 132  # an H100's SMs: a square-tile grid of no more blocks takes K groups
+_SIGNATURES = {"conv3x3_forward": [_V] * 8 + [_I] * 17 + [_V]}
+NUM_SMS = 132  # an H100's SMs: a square-tile grid of no more blocks splits K where Cin allows
 SMEM_MAX = 232448  # the most shared memory a block may use
 CK, XCS = 16, 17  # input channels per step; floats of a staged pixel
 SAMPLE_PIXELS = 625  # up to this many pixels a sample (25^2), large grids take whole-sample tiles
 SAMPLE_THREADS, SAMPLE_TN = 256, 8  # threads of a whole-sample block; output channels a thread
 SAMPLE_VARIANTS = ((32, 5), (32, 10))  # (nt, tp) the kernel has: a sample of up to 320 pixels, or of up to 640
-FAMILIES = ("tile", "sample")
+SPLIT_THREADS, SPLIT_TP = 256, 4  # threads of a split block; output pixels a computing thread
+SPLIT_NT = (16, 32)  # the Cout slices the split kernel has
+SPLIT_MIN_CIN = 2 * CK  # from two 16-channel slices on, small grids split K
+SPLIT_TARGET, SPLIT_MAX_BLOCKS = 128, 208  # a split grid's blocks: fill the 132 SMs, at most ~1.6 a SM
+SPLIT_MAX_KS = 16  # ranges of a tile: the blocks of one cluster, at most 16 on an H100
+FAMILIES = ("tile", "sample", "split")
 
 
 class Conv3x3Plan(NamedTuple):
     """How the kernel cuts the work. ``family`` "tile": square pixel tiles
     (16x8 with ``nt`` = 16 output channels, or 8x8 with 32) of one sample,
-    ``kg`` K groups of 128 threads. "sample": ``samples`` whole samples a
+    128 threads. "sample": ``samples`` whole samples a
     tile with a one-pixel zero halo, an ``nt``-wide Cout slice a block, 256
-    threads of ``tp`` pixels x 8 channels, a two-stage copy ring.
+    threads of ``tp`` pixels x 8 channels, a two-stage copy ring. "split":
+    bands of ``rows`` rows of one sample (the last may be shorter), an
+    ``nt``-wide Cout slice, and ``ks`` ranges of Cin's 16-channel slices
+    (range k: slices [k*n//ks, (k+1)*n//ks) of n), one block each, the ks
+    blocks of a tile one cluster; 256 threads, of which ``tg`` tap groups
+    (1..9; group t: taps [9t/tg, 9(t+1)/tg)) of those needed hold ``tp``
+    pixels x 8 channels (``tg`` is 1 in the other families).
     ``smem``: bytes of dynamic shared memory a block; ``blocks``: the grid's."""
 
     family: str
     nt: int
-    kg: int
+    tg: int
     tp: int
     samples: int
     smem: int
     blocks: int
+    rows: int = 0
+    ks: int = 1
 
 
 def _tile_plan(b, h, w, cin, cout, flip) -> Conv3x3Plan:
     nt, th, tw = (16, 16, 8) if cout <= 16 else (32, 8, 8)
     blocks = -(-h // th) * -(-w // tw) * -(-cout // nt) * b
-    kg = 4 if blocks <= NUM_SMS and cin >= 4 * CK else 2 if blocks <= NUM_SMS and cin >= 2 * CK else 1
     xs = ((th + 2) * (tw + 2) * XCS + 3) // 4 * 4
-    return Conv3x3Plan("tile", nt, kg, 0, 1, 4 * kg * (xs + 9 * CK * (nt + 4 if flip else nt)), blocks)
+    return Conv3x3Plan("tile", nt, 1, 0, 1, 4 * (xs + 9 * CK * (nt + 4 if flip else nt)), blocks)
 
 
 def _sample_stage_floats(h, w, samples, nt, flip) -> int:
@@ -95,18 +113,65 @@ def _sample_plan(b, h, w, cin, cout, flip, nt, tp) -> Conv3x3Plan | None:
     return Conv3x3Plan("sample", nt, 1, tp, samples, smem, -(-b // samples) * -(-cout // nt))
 
 
+def _split_plan(b, h, w, cin, cout, flip, nt, ks, rows) -> Conv3x3Plan | None:
+    nsl, ncs, bands = -(-cin // CK), -(-cout // nt), -(-h // rows)
+    cpt = -(-rows * w // SPLIT_TP) * (nt // SAMPLE_TN)  # threads of a tap group
+    tg = min(9, SPLIT_THREADS // cpt)  # as many tap groups as the block has threads for
+    if not 1 <= ks <= min(nsl, SPLIT_MAX_KS) or tg < 1:
+        return None
+    stages = min(2, -(-nsl // ks))  # a ring only where a range has two slices
+    xs = (((rows + 2) * (w + 1) + 1) * XCS + 3) // 4 * 4  # rows of W + 1 slots, as the whole-sample tiles
+    gate = (rows + 2) * w * CK if flip else 0  # the dgrad's in_gate slice of the staged pixels
+    # after the K loop, over the staging buffers: the block's partial tile, then the tap groups' sums
+    # (later its share of the tile's reduced outputs)
+    sums = rows * w * nt + max(tg * SPLIT_TP * SAMPLE_TN * cpt, rows * w * nt)
+    weights = 9 * CK * (2 * nt + 4 if flip else nt)  # the dgrad's also as they arrive, before the transpose
+    smem = 4 * max(stages * (xs + weights) + gate, sums)
+    if smem > SMEM_MAX:
+        return None
+    return Conv3x3Plan("split", nt, tg, SPLIT_TP, 1, smem, b * bands * ncs * ks, rows, ks)
+
+
+def _split_choice(b, h, w, cin, cout, flip, target=SPLIT_TARGET, max_blocks=SPLIT_MAX_BLOCKS) -> Conv3x3Plan | None:
+    """The split tiling whose grid has target..max_blocks blocks (or comes
+    nearest), then the fewest slices a range, the fewest taps a thread, the
+    fewest blocks, the least shared memory, the narrower Cout slice.
+    ``kernel_ab.py`` times the choice at other windows of blocks."""
+    nsl = -(-cin // CK)
+    best, best_key = None, None
+    for nt in SPLIT_NT:
+        for ks in range(1, min(nsl, SPLIT_MAX_KS) + 1):
+            for rows in range(1, h + 1):
+                p = _split_plan(b, h, w, cin, cout, flip, nt, ks, rows)
+                if p is None:
+                    continue
+                off = max(0, target - p.blocks) + max(0, p.blocks - max_blocks)
+                key = (off, -(-nsl // ks), -(-9 // p.tg), p.blocks, p.smem, nt)
+                if best_key is None or key < best_key:
+                    best, best_key = p, key
+    return best
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of its arguments, asked at every launch
 def conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int, flip: bool = False, *,
                  family: str | None = None, variant: tuple | None = None) -> Conv3x3Plan:
     """The kernel's grid for (B, H, W, Cin, Cout); depends on the shapes only.
-    Square tiles (the first design's routing, K groups on grids of at most
-    NUM_SMS blocks) everywhere except small samples (H*W <= SAMPLE_PIXELS)
-    whose square tiles make a grid larger than the card, which take
-    whole-sample tiles if those still give 15/16 of the SMs a block.
-    ``family`` and ``variant`` ((nt, tp) of SAMPLE_VARIANTS) override the
-    choice; both families give the same bits."""
+    Grids of square tiles no larger than the card (NUM_SMS blocks: B=1)
+    take the split family where Cin has two slices or more;
+    small samples (H*W <= SAMPLE_PIXELS) whose square tiles make a grid
+    larger than the card take whole-sample tiles if those still give 15/16
+    of the SMs a block; everything else the square tiles. ``family`` and
+    ``variant`` ((nt, tp) of SAMPLE_VARIANTS, or (nt, ks, rows) of a split)
+    override the choice; "tile" and "sample" give the same bits."""
     tile = _tile_plan(b, h, w, cin, cout, flip)
     if family not in (None,) + FAMILIES:
         raise ValueError(f"conv3x3_plan: family must be one of {FAMILIES}, got {family!r}")
+    if family == "split" or (family is None and tile.blocks <= NUM_SMS and cin >= SPLIT_MIN_CIN):
+        plan = (_split_plan(b, h, w, cin, cout, flip, *variant) if variant
+                else _split_choice(b, h, w, cin, cout, flip))
+        if plan is None:
+            raise ValueError(f"conv3x3_plan: no split tiling {variant or ''} for {(b, h, w, cin, cout)}")
+        return plan
     if family == "tile" or (family is None and (h * w > SAMPLE_PIXELS or tile.blocks <= NUM_SMS)):
         return tile
     # the narrower variant where a sample fits it: more blocks, and two of them on an SM
@@ -178,8 +243,8 @@ def _launch(x, w_hwio, bias, residual, *, relu_in=False, relu_res=False, relu_ou
     masked = None if in_gate is None else torch.empty_like(x)
     p = conv3x3_plan(b, h, w, cin, cout, flip)
     if plan is not None:
-        p = conv3x3_plan(b, h, w, cin, cout, flip, family=plan.family,
-                         variant=(plan.nt, plan.tp) if plan.family == "sample" else None)
+        variant = {"sample": (plan.nt, plan.tp), "split": (plan.nt, plan.ks, plan.rows)}.get(plan.family)
+        p = conv3x3_plan(b, h, w, cin, cout, flip, family=plan.family, variant=variant)
         if plan != p:
             raise ValueError(f"conv3x3: the plan {plan} is not one of these shapes ({p})")
     vec = cout % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (out, bias, residual, gate) if t is not None)
@@ -189,7 +254,7 @@ def _launch(x, w_hwio, bias, residual, *, relu_in=False, relu_res=False, relu_ou
             _build.ptr(x), _build.ptr(in_gate), _build.ptr(w_hwio), _build.ptr(bias), _build.ptr(residual),
             _build.ptr(gate), _build.ptr(out), _build.ptr(masked),
             b, h, w, cin, cout, int(relu_in), int(relu_res), int(relu_out), int(flip),
-            FAMILIES.index(p.family), p.nt, p.kg if p.family == "tile" else p.tp, p.samples, p.smem,
+            FAMILIES.index(p.family), p.nt, p.tp if p.family == "sample" else p.tg, p.samples, p.rows, p.ks, p.smem,
             int(vec), _build.stream_of(x),
         )
     _build.check(code, "conv3x3")

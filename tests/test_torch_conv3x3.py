@@ -11,8 +11,9 @@ import jax
 import jax.numpy as jnp
 
 from plastic_unet_tpu.ops.pallas_conv import conv3x3_flat, flatten_hw, pack_weights, unflatten_hw
-from plastic_unet_tpu_torch.ops.conv3x3 import (NUM_SMS, SAMPLE_THREADS, SAMPLE_TN, SMEM_MAX, _sample_stage_floats,
-                                                conv3x3, conv3x3_dgrad, conv3x3_plan, hwio)
+from plastic_unet_tpu_torch.ops.conv3x3 import (NUM_SMS, SAMPLE_THREADS, SAMPLE_TN, SMEM_MAX, SPLIT_MAX_KS,
+                                                SPLIT_THREADS, SPLIT_TP, XCS, _sample_stage_floats, conv3x3,
+                                                conv3x3_dgrad, conv3x3_plan, hwio)
 from plastic_unet_tpu_torch.ops.conv3x3_wgrad import (ONE_CHUNK_PIXELS, TARGET_BLOCKS, _stage_bytes, conv3x3_wgrad,
                                                        wgrad_plan)
 
@@ -188,9 +189,50 @@ def test_wgrad_plan_covers_every_tile(b, h, w, cin, cout):
     assert stages * _stage_bytes(w, p.ci_t, p.co_t, p.rows, p.samples) <= p.smem <= 232448
 
 
+def _split_blocks(p, b, h, w, cout, k):
+    """The flat output indices the threads of range k's blocks sum, decoded
+    from the plan as the split kernel decodes blockIdx and threadIdx (tap
+    group 0, which holds the block's partial sums)."""
+    bands, ngr = -(-h // p.rows), p.nt // SAMPLE_TN
+    tid = np.arange(SPLIT_THREADS)
+    ng, pg = tid % ngr, tid // ngr
+    got = []
+    for bx in range(b * bands):
+        bb, y0 = bx // bands, (bx % bands) * p.rows
+        npix = min(p.rows, h - y0) * w
+        pgs = -(-npix // SPLIT_TP)
+        assert pgs * ngr <= SPLIT_THREADS  # enough threads for the band's pixels
+        for by in range(-(-cout // p.nt)):
+            pix = pg[:, None, None] + np.arange(SPLIT_TP)[None, :, None] * pgs
+            n = by * p.nt + (ng * SAMPLE_TN)[:, None, None] + np.arange(SAMPLE_TN)
+            pix, n, pgb = np.broadcast_arrays(pix, n, pg[:, None, None])
+            ok = (pgb < pgs) & (pix < npix) & (n < cout)
+            got.append((((bb * h + y0) * w + pix) * cout + n)[ok].ravel())
+    return np.concatenate(got)
+
+
+def _split_stores(p, b, h, w, cout):
+    """The flat output indices the split kernel stores: block k of a tile's
+    cluster stores the k-th of ks shares of the tile's four-channel elements."""
+    bands, q = -(-h // p.rows), p.nt // 4
+    got = []
+    for bx in range(b * bands):
+        bb, y0 = bx // bands, (bx % bands) * p.rows
+        nel = min(p.rows, h - y0) * w * q
+        for by in range(-(-cout // p.nt)):
+            for k in range(p.ks):
+                e = np.arange(k * nel // p.ks, (k + 1) * nel // p.ks)
+                n = by * p.nt + 4 * (e % q)[:, None] + np.arange(4)
+                flat = ((bb * h + y0) * w + (e // q)[:, None]) * cout + n
+                got.append(flat[n < cout])
+    return np.concatenate(got)
+
+
 def _written(p, b, h, w, cout):
     """How often the kernel's threads write each (b, y, x, co), decoded from
     the plan as the kernel decodes blockIdx and threadIdx."""
+    if p.family == "split":
+        return np.bincount(_split_stores(p, b, h, w, cout), minlength=b * h * w * cout)
     if p.family == "tile":
         th, tw = (16, 8) if p.nt == 16 else (8, 8)
         ngr = p.nt // 4
@@ -229,16 +271,21 @@ _LEVEL_CASES = [(bb, hw, hw, c, c) for bb in (1, 128) for hw, c in
 @pytest.mark.parametrize("b,h,w,cin,cout", _LEVEL_CASES + [(5, 6, 6, 256, 256), (3, 13, 7, 40, 24),
                                                            (2, 9, 9, 6, 10)])
 def test_conv3x3_plan_covers_every_output(b, h, w, cin, cout, flip):
-    """Every output is written exactly once by the plan's grid; B=1 and the
-    levels of side 50 and more keep the first design's routing; a block fits
-    shared memory. Cases the rule gives the square tiles are also decoded in
-    the whole-sample family, which the chip run holds at them too."""
+    """Every output is written exactly once by the plan's grid; grids of
+    square tiles no larger than the card split K where Cin has two slices,
+    and the rest keep the first design's routing at B=1 and the levels of
+    side 50 and more; a block fits shared memory. Cases the rule gives the
+    square tiles are also decoded in the whole-sample family, which the chip
+    run holds at them too."""
     p = conv3x3_plan(b, h, w, cin, cout, flip)
-    if b == 1 or h >= 50:
+    if p.family == "split":
+        blocks = -(-h // (16 if cout <= 16 else 8)) * -(-w // 8) * -(-cout // (16 if cout <= 16 else 32)) * b
+        assert blocks <= NUM_SMS and cin >= 32
+    elif b == 1 or h >= 50:
         nt = 16 if cout <= 16 else 32
         blocks = -(-h // (16 if nt == 16 else 8)) * -(-w // 8) * -(-cout // nt) * b
-        kg = 4 if blocks <= NUM_SMS and cin >= 64 else 2 if blocks <= NUM_SMS and cin >= 32 else 1
-        assert (p.family, p.nt, p.kg) == ("tile", nt, kg)
+        assert blocks > NUM_SMS or cin < 32
+        assert (p.family, p.nt, p.tg) == ("tile", nt, 1)
     elif b == 128:
         assert p.family == "sample"  # 25^2, 12^2, 6^2 at B=128
     plans = [p] if p.family == "sample" or h * w > 625 else [p, conv3x3_plan(b, h, w, cin, cout, flip, family="sample")]
@@ -250,3 +297,80 @@ def test_conv3x3_plan_covers_every_output(b, h, w, cin, cout, flip):
             assert q.smem == 4 * (2 * _sample_stage_floats(h, w, q.samples, q.nt, flip) + gate)
             cap = SAMPLE_THREADS // (q.nt // SAMPLE_TN) * q.tp
             assert 1 <= q.samples * h * w <= cap
+
+
+# The parent's plans at the ten level shapes (family, nt, kg, tp, samples, smem, blocks), forward and dgrad:
+# every launch that does not split K keeps them.
+_PARENT_PLANS = {
+    (1, 101, False): ("tile", 16, 1, 0, 1, 21456, 91), (1, 50, False): ("tile", 32, 2, 0, 1, 50464, 49),
+    (1, 25, False): ("tile", 32, 4, 0, 1, 100928, 32), (1, 12, False): ("tile", 32, 4, 0, 1, 100928, 16),
+    (1, 6, False): ("tile", 32, 4, 0, 1, 100928, 8), (128, 101, False): ("tile", 16, 1, 0, 1, 21456, 11648),
+    (128, 50, False): ("tile", 32, 1, 0, 1, 25232, 6272), (128, 25, False): ("sample", 32, 1, 10, 1, 132480, 256),
+    (128, 12, False): ("sample", 32, 1, 5, 2, 86528, 256), (128, 6, False): ("sample", 32, 1, 5, 8, 97952, 128),
+    (1, 101, True): ("tile", 16, 1, 0, 1, 23760, 91), (1, 50, True): ("tile", 32, 2, 0, 1, 55072, 49),
+    (1, 25, True): ("tile", 32, 4, 0, 1, 110144, 32), (1, 12, True): ("tile", 32, 4, 0, 1, 110144, 16),
+    (1, 6, True): ("tile", 32, 4, 0, 1, 110144, 8), (128, 101, True): ("tile", 16, 1, 0, 1, 23760, 11648),
+    (128, 50, True): ("tile", 32, 1, 0, 1, 27536, 6272), (128, 25, True): ("sample", 32, 1, 10, 1, 177088, 256),
+    (128, 12, True): ("sample", 32, 1, 5, 2, 109568, 256), (128, 6, True): ("sample", 32, 1, 5, 8, 120992, 128),
+}
+_LEVEL_C = {101: 16, 50: 32, 25: 64, 12: 128, 6: 256}
+
+
+@pytest.mark.parametrize("b,hw,flip", sorted(_PARENT_PLANS))
+def test_conv3x3_plan_keeps_the_parent_plan(b, hw, flip):
+    """Every B=128 level and every Cin below 32 get exactly the parent's
+    plan; the B=1 levels with two slices or more of Cin split K on a grid
+    of at least 128 blocks, where the parent's square tiles had at most 49."""
+    c = _LEVEL_C[hw]
+    p = conv3x3_plan(b, hw, hw, c, c, flip)
+    parent = _PARENT_PLANS[(b, hw, flip)]
+    if b == 128 or c < 32:
+        assert tuple(p) == parent + (0, 1)
+    else:
+        assert parent[6] <= NUM_SMS and p.family == "split" and p.blocks >= 128
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(128, 12, 12, 128, 128), (40, 25, 25, 64, 64), (8, 101, 101, 16, 16),
+                                            (2, 101, 101, 16, 16), (1, 101, 101, 16, 16), (1, 30, 30, 16, 16),
+                                            (9, 50, 50, 32, 32), (37, 6, 6, 256, 256)])
+def test_conv3x3_plan_splits_only_small_grids(b, h, w, cin, cout):
+    """Grids of more than NUM_SMS square tiles, and Cin of one slice, never
+    take the split family; "tile" and "sample" keep their forced plans."""
+    for flip in (False, True):
+        p = conv3x3_plan(b, h, w, cin, cout, flip)
+        tile = conv3x3_plan(b, h, w, cin, cout, flip, family="tile")
+        assert p.family != "split" and (p.rows, p.ks) == (0, 1)
+        assert tile.blocks > NUM_SMS or cin < 32
+        assert p == tile or p.family == "sample"
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("b,h,w,cin,cout", [(1, hw, hw, c, c) for hw, c in _LEVEL_C.items()]
+                         + [(1, 13, 7, 40, 24), (1, 9, 9, 48, 10), (2, 6, 6, 256, 256)])
+def test_split_plan_covers_every_output(b, h, w, cin, cout, flip):
+    """The split family, forced where the plan would not take it: every
+    output is summed exactly once in every range and written once; every
+    16-channel slice of Cin lies in exactly one range, ascending within it;
+    a tile's ranges fit one cluster, and a block's staging, partial tile and
+    tap-group sums fit shared memory."""
+    p = conv3x3_plan(b, h, w, cin, cout, flip, family="split")
+    assert p.family == "split" and p.tp == SPLIT_TP
+    for k in range(p.ks):
+        assert (np.bincount(_split_blocks(p, b, h, w, cout, k), minlength=b * h * w * cout) == 1).all()
+    assert (_written(p, b, h, w, cout) == 1).all()
+    nsl = -(-cin // 16)
+    ranges = [list(range(k * nsl // p.ks, (k + 1) * nsl // p.ks)) for k in range(p.ks)]
+    assert sorted(s for r in ranges for s in r) == list(range(nsl)) and all(r for r in ranges)
+    bands, ncs = -(-h // p.rows), -(-cout // p.nt)
+    assert p.blocks == b * bands * ncs * p.ks and p.ks <= SPLIT_MAX_KS
+    stages = min(2, max(map(len, ranges)))
+    xs = (((p.rows + 2) * (w + 1) + 1) * XCS + 3) // 4 * 4
+    gate = (p.rows + 2) * w * 16 if flip else 0
+    cpt = -(-p.rows * w // SPLIT_TP) * (p.nt // SAMPLE_TN)  # threads of a tap group
+    assert p.tg == min(9, SPLIT_THREADS // cpt) >= 1  # tap groups: as many as the threads allow
+    taps = [list(range(9 * t // p.tg, 9 * (t + 1) // p.tg)) for t in range(p.tg)]
+    assert sum(taps, []) == list(range(9)) and all(taps)
+    staged = stages * (xs + 9 * 16 * (2 * p.nt + 4 if flip else p.nt)) + gate
+    sums = p.rows * w * p.nt + max(p.tg * SPLIT_TP * SAMPLE_TN * cpt, p.rows * w * p.nt)
+    assert p.smem == 4 * max(staged, sums) <= SMEM_MAX
+    assert conv3x3_plan(b, h, w, cin, cout, flip, family="split", variant=(p.nt, p.ks, p.rows)) == p
