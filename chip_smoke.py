@@ -11,7 +11,9 @@ is non-zero:
      every kernel of csrc/ with nvcc for sm_90a (one process per source).
   2. every kernel against its plain PyTorch version on the card, at the
      shapes of the serving path (B=128) and of the training step (B=1):
-     the plastic head (hebb/oja x free/yoked), the 3x3 conv at the five
+     the plastic head (hebb/oja x free/yoked; each tile family of its plan,
+     forced, at n in HEAD_NS and B in HEAD_BS, bit-identical over two runs
+     and across families), the 3x3 conv at the five
      level shapes with every flag combination plus Cin != Cout cases (B=128
      takes the whole-sample tiles at 25^2, 12^2, 6^2; B=1 splits K across
      blocks from 50^2 down, each such case bit-identical over two runs), and
@@ -32,7 +34,8 @@ is non-zero:
   6. times (CUDA events around each call while the device is kept busy,
      so host issue time is excluded; warm-up excluded; median of 20) at B=128
      and at B=1: each kernel, its plain version, its bound and the cuDNN
-     call where one exists; serving tiles/s at neurons=16, chunk 128.
+     call where one exists (for the head, torch.bmm of its product alone,
+     bmm_ms); serving tiles/s at neurons=16, chunk 128.
 
   7. the backward kernels against their plain versions on the card, at the
      five level shapes, B=1 and B=128: the conv's input-gradient form with
@@ -69,7 +72,8 @@ is non-zero:
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
 belong to the entry's "shape"; keys ending in _b1 or _b128 give the same at
 the other batch size, max_abs_err_all_shapes the largest over every case,
-library_det_ms the library call under deterministic cuDNN.
+library_det_ms the library call under deterministic cuDNN, bmm_ms the
+head's product alone as one torch.bmm call.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -213,9 +217,60 @@ def phase_device():
 
 # --------------------------------------------------------------------------- phase 2
 
+HEAD_NS, HEAD_BS = (16, 33, 101, 128), (1, 3, 128, 129)  # phase 2: every family of the head, forced
+
+
+def phase_head(dev, errs):
+    """The plastic head against its plain version: every tile family of
+    head_plan (the plan's choice among them), forced where it applies, at
+    HEAD_NS x HEAD_BS, each bit-identical over two runs and to the other
+    families (one order of sums in all)."""
+    from plastic_unet_tpu_torch.ops.plastic_head import FAMILIES, head_plan, plastic_head, plastic_head_plain
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    n_cases = 0
+    for n in HEAD_NS:
+        w, eta = rnd(n, n, scale=0.01), torch.full((1,), 0.01, device=dev)
+        alphas = (("free", rnd(n, n).abs() * 0.01), ("yoked", torch.full((1,), 0.02, device=dev)))
+        for b in HEAD_BS:
+            x, hebb = rnd(b, n, n), rnd(b, n, n, scale=0.1)
+            plans = []
+            for family in FAMILIES:
+                try:
+                    plans.append(head_plan(b, n, family=family))
+                except ValueError:
+                    pass
+            for rule in ("hebb", "oja"):
+                for alfa_type, alpha in alphas:
+                    ref = plastic_head_plain(w, alpha, eta, x, hebb, rule=rule, alfa_type=alfa_type)
+                    first = None
+                    for plan in plans:
+                        what = f"plastic_head B={b} n={n} {rule}/{alfa_type} {plan.family}"
+                        got = plastic_head(w, alpha, eta, x, hebb, rule=rule, alfa_type=alfa_type, plan=plan)
+                        for name, gt, rf in zip(("activ", "activout", "hebb"), got, ref):
+                            e, tol = max_err(gt, rf)
+                            check(e <= tol, f"{what} {name}: max|diff| {e:.3g} > {tol:.3g}")
+                            errs.note("plastic_head", e, b if n == 101 else None, n)
+                        again = plastic_head(w, alpha, eta, x, hebb, rule=rule, alfa_type=alfa_type, plan=plan)
+                        check(all(bool(torch.equal(a, c)) for a, c in zip(got, again)),
+                              f"{what}: two runs differ in some bit")
+                        first = first or (plan.family, got)
+                        check(all(bool(torch.equal(a, c)) for a, c in zip(got, first[1])),
+                              f"{what}: differs in some bit from the {first[0]} family")
+                        n_cases += 1
+            print(f"[2] plastic_head B={b} n={n}: families {[p.family for p in plans]} (the plan takes "
+                  f"{head_plan(b, n).family}), hebb/oja x free/yoked, each bit-identical over two runs and "
+                  f"across families", flush=True)
+    print(f"[2] plastic_head {n_cases} cases: max|diff| at n=101 B={B} {errs.at('plastic_head', B):.3g}, "
+          f"B=1 {errs.at('plastic_head', 1):.3g}; over all {errs.all('plastic_head'):.3g}", flush=True)
+
+
 def phase_kernels(dev):
     from plastic_unet_tpu_torch.ops.conv3x3 import FAMILIES, conv3x3, conv3x3_plain, conv3x3_plan, hwio
-    from plastic_unet_tpu_torch.ops.plastic_head import plastic_head, plastic_head_plain
     from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_plain
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -224,21 +279,7 @@ def phase_kernels(dev):
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    n = 101
-    w, eta = rnd(n, n, scale=0.01), torch.full((1,), 0.01, device=dev)
-    for b in (B, 1):  # serving runs chunks of B, the training step B=1
-        x, hebb = rnd(b, n, n), rnd(b, n, n, scale=0.1)
-        for rule in ("hebb", "oja"):
-            for alfa_type, alpha in (("free", rnd(n, n).abs() * 0.01), ("yoked", torch.full((1,), 0.02, device=dev))):
-                got = plastic_head(w, alpha, eta, x, hebb, rule=rule, alfa_type=alfa_type)
-                ref = plastic_head_plain(w, alpha, eta, x, hebb, rule=rule, alfa_type=alfa_type)
-                for what, gt, rf in zip(("activ", "activout", "hebb"), got, ref):
-                    e, tol = max_err(gt, rf)
-                    check(e <= tol, f"plastic_head B={b} {rule}/{alfa_type} {what}: max|diff| {e:.3g} > {tol:.3g}")
-                    errs.note("plastic_head", e, b, n)
-    print(f"[2] plastic_head nbf={n} hebb/oja x free/yoked: max|diff| B={B} {errs.at('plastic_head', B):.3g}, "
-          f"B=1 {errs.at('plastic_head', 1):.3g}", flush=True)
-
+    phase_head(dev, errs)
     flag_sets = [(False, None, False), (True, None, False), (False, None, True),
                  (True, "plain", False), (False, "relu", True), (True, "relu", True)]
     cases = [(hw, c, c, flags) for hw, c in LEVELS for flags in flag_sets]
@@ -606,7 +647,7 @@ def phase_times(dev, name, full, main_counts, errs):
     import torch.nn.functional as F
 
     from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, hwio
-    from plastic_unet_tpu_torch.ops.plastic_head import plastic_head, plastic_head_plain
+    from plastic_unet_tpu_torch.ops.plastic_head import head_plan, plastic_head, plastic_head_plain
     from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_plain
     from plastic_unet_tpu_torch.utils.precision import matmul_precision
 
@@ -631,14 +672,16 @@ def phase_times(dev, name, full, main_counts, errs):
         w, a, eta = rnd(n, n, scale=0.01), rnd(n, n).abs() * 0.01, torch.full((1,), 0.01, device=dev)
         for b in (B, 1):  # the serving chunk, and the training step's B=1
             x, hebb = rnd(b, n, n), rnd(b, n, n, scale=0.1)
+            eff = w + a * hebb  # the head's product alone, as one cuBLAS call: the yardstick bmm_ms
             head = dict(ms=time_ms(lambda: plastic_head(w, a, eta, x, hebb, rule="oja"))[0],
                         plain_ms=time_ms(lambda: plastic_head_plain(w, a, eta, x, hebb, rule="oja"))[0],
-                        cudnn_ms=None)
+                        bmm_ms=time_ms(lambda: torch.bmm(x, eff))[0], cudnn_ms=None)
             head["bound_ms"], head["bound_by"] = bound_ms(
                 2 * b * n ** 3 + 8 * b * n * n, 4 * (5 * b * n * n + 2 * n * n + 1), pk)
             table[("plastic_head", b, n)] = head
-            print(f"[6] plastic_head B={b} nbf={n}: kernel {head['ms']:.4f} ms, plain {head['plain_ms']:.4f} ms, "
-                  f"bound {head['bound_ms']:.5f} ms ({head['bound_by']}), {head['bound_ms'] / head['ms']:.1%} of bound",
+            print(f"[6] plastic_head B={b} nbf={n} ({head_plan(b, n).family}): kernel {head['ms']:.4f} ms, plain "
+                  f"{head['plain_ms']:.4f} ms, torch.bmm of the product alone {head['bmm_ms']:.4f} ms, bound "
+                  f"{head['bound_ms']:.5f} ms ({head['bound_by']}), {head['bound_ms'] / head['ms']:.1%} of bound",
                   flush=True)
 
             for hw, c in LEVELS:
@@ -712,6 +755,8 @@ def phase_times(dev, name, full, main_counts, errs):
         entry.update({f"{k}_b1": one[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cudnn_ms")})
         entry.update({"library_ms_b1": one["cudnn_ms"] if kname == "conv3x3" else None,
                       "max_abs_err_b1": errs.at(kname, 1), "max_abs_err_all_shapes": errs.all(kname)})
+        if kname == "plastic_head":
+            entry.update({"bmm_ms": many["bmm_ms"], "bmm_ms_b1": one["bmm_ms"]})
         kernels.append(entry)
     return kernels, table
 

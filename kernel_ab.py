@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the conv3x3, conv3x3_dgrad and conv3x3_wgrad kernels and the serving path of several
+"""Time the plastic head, the conv3x3, conv3x3_dgrad and conv3x3_wgrad kernels and the serving path of several
 checkouts of this repository on one CUDA card, one after the other in one run:
 
     mkdir -p build/parent && git archive HEAD plastic_unet_tpu_torch | tar -x -C build/parent
@@ -12,7 +12,10 @@ limits, so two versions are compared only within one run, and the order
 A B B A shows how far the card drifts meanwhile.
 
 Per checkout it prints device times (ms; CUDA events while the device is
-kept busy, median of 20, chip_smoke.time_ms) of one conv3x3 launch, one
+kept busy, median of 20, chip_smoke.time_ms) of one plastic_head launch at
+n=101, B=128 and B=1, hebb and oja (the plan's choice, then each tile
+family of head_plan where the checkout has one; each with a digest of its
+three outputs), one conv3x3 launch, one
 conv3x3_dgrad launch (with in_gate and gate, as the tail's backward first
 calls it) and one conv3x3_wgrad call (ReLU on load, torch layout, as the
 tail's backward calls it; its second stage included) at the five UNetPRes
@@ -42,6 +45,49 @@ import time
 SPLIT_WINDOWS = ((48, 64), (96, 112), (128, 208), (256, 320))
 
 
+def digest(*ts) -> str:
+    """A short hash of the tensors' bytes: equal digests are equal bits."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_head(label: str) -> None:
+    """The plastic head at n=101, B=128 and B=1, hebb and oja (free alpha):
+    the plan's choice, then each family forced where the checkout has
+    head_plan; one line each with its time and a digest of its three outputs."""
+    import torch
+
+    from chip_smoke import B, time_ms
+
+    from plastic_unet_tpu_torch.ops import plastic_head as head_mod
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    n = 101
+    for b in (B, 1):
+        for rule in ("hebb", "oja"):
+            gen.manual_seed(1000 * n + b + (rule == "oja"))
+            x, hebb = torch.randn(b, n, n, generator=gen, device=dev), 0.1 * torch.randn(b, n, n, generator=gen, device=dev)
+            w, alpha = 0.01 * torch.randn(n, n, generator=gen, device=dev), 0.01 * torch.rand(n, n, generator=gen, device=dev)
+            eta = torch.full((1,), 0.01, device=dev)
+            plans = [None]
+            if hasattr(head_mod, "head_plan"):
+                for family in head_mod.FAMILIES:
+                    try:
+                        plans.append(head_mod.head_plan(b, n, family=family))
+                    except ValueError:
+                        pass
+            for plan in plans:
+                kw = {} if plan is None else {"plan": plan}
+                ms = time_ms(lambda: head_mod.plastic_head(w, alpha, eta, x, hebb, rule=rule, **kw))[0]
+                out = head_mod.plastic_head(w, alpha, eta, x, hebb, rule=rule, **kw)
+                which = "the plan's choice" if plan is None else f"{plan.family} {plan.grid} {plan.threads} threads"
+                print(f"[{label}] plastic_head B={b} n={n} {rule} ({which}): {ms:.4f} ms digest {digest(*out)}",
+                      flush=True)
+
+
 def time_checkout(label: str) -> int:
     """Runs with the checkout as the working directory."""
     import numpy as np
@@ -62,12 +108,6 @@ def time_checkout(label: str) -> int:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def digest(*ts):
-        h = hashlib.sha256()
-        for t in ts:
-            h.update(t.contiguous().cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
-
     def diff(got, ref):
         return float((got.double() - ref.double()).abs().max())
 
@@ -75,6 +115,7 @@ def time_checkout(label: str) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[{label}] {smi}", flush=True)
     with torch.inference_mode():
+        time_head(label)
         for b in (1, B):
             for hw, c in LEVELS:
                 gen.manual_seed(1000 * hw + b)
