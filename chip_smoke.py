@@ -68,10 +68,22 @@ is non-zero:
      eager and as a graph (steps/s, device time; the eager step's idle
      share is derived from the replay's device time), lanes=128 samples/s,
      and the step's FLOP bound.
+  11. the training entry point (python -m plastic_unet_tpu_torch.cli.train,
+     in-process, in a temporary directory): UNetPRes neurons=16, nbf=101,
+     B=1, --synthetic 40 (32 train / 8 validation tiles), dropout 0.5,
+     shuffle and augmentation; 4 epochs at 2 a dispatch equal 4 at 1 a
+     dispatch, and 2 epochs then a resume for 2 more, bit for bit (losses,
+     parameters, validation, the dropout generator); the three artifacts
+     read back (train_data.hdf5 where h5py is installed); cli.tuned_run to
+     submission.csv; the launch counts of the driver's run (warm-up, capture
+     and validation chunks); the driver's time per epoch against the bare
+     graph step of phase 10.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
-belong to the entry's "shape"; keys ending in _b1 or _b128 give the same at
-the other batch size, max_abs_err_all_shapes the largest over every case,
+belong to the entry's "shape"; "launches" counts the serving request of
+phase 5 (the backward kernels: one eager training step), launches_train_step
+one eager training step (phase 9), launches_driver the driver's first run
+of phase 11; keys ending in _b1 or _b128 give the same at the other batch size, max_abs_err_all_shapes the largest over every case,
 library_det_ms the library call under deterministic cuDNN, bmm_ms the
 head's product alone as one torch.bmm call.
 
@@ -1029,7 +1041,187 @@ def phase_training_times(dev, name, errs, step_counts, fwd_table):
         if "library_det_ms" in one:
             entry.update({"library_det_ms": one["library_det_ms"], f"library_det_ms_b{B}": many["library_det_ms"]})
         kernels.append(entry)
-    return kernels
+    return kernels, graph_s
+
+
+# --------------------------------------------------------------------------- phase 11
+
+DRIVER_ARGS = ["--synthetic", "40", "--neurons", "16", "--dropout", "0.5", "--shuffle", "--augment",
+               "--validate_every", "2", "--save_every", "2"]  # 32 train / 8 validation tiles
+TUNED_ARGS = ["--synthetic", "40", "--epochs", "2", "--neurons", "16"]
+TIMED_ARGS = ["--synthetic", "4000", "--neurons", "16", "--dropout", "0.5", "--shuffle", "--augment", "-e", "2"]
+TIMED_TRAIN = 3200  # 3,200 train / 800 validation tiles: the TGS train set's 4,000, split as the CLI splits it
+
+
+def phase_driver(dev, smi, graph_step_s):
+    """The training entry point on the card: cli.train at full width with
+    dropout, shuffle and augmentation, 4 epochs folded 2 a dispatch against
+    1 a dispatch and against 2 epochs then a resume for 2 more (bit for bit);
+    the three artifacts; cli.tuned_run to submission.csv; the kernels'
+    launches during the driver's epochs; the driver's time per epoch at the
+    TGS train set's size, 1 and 2 epochs a dispatch, against the bare graph
+    step."""
+    import pickle
+
+    from plastic_unet_tpu_torch.cli import train as cli_train
+    from plastic_unet_tpu_torch.cli import tuned_run as cli_tuned
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.train import loop
+    from plastic_unet_tpu_torch.train.driver import RESUME_STATE
+
+    dispatches = []  # (epochs, start, end) of every dispatch of a timed run, host clock
+    real_make = loop.make_multi_epoch_fn
+
+    def timed_make(*a, **kw):
+        fn = real_make(*a, **kw)
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, losses = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            dispatches.append((losses.shape[0], t, time.perf_counter()))
+            return state, losses
+
+        return run
+
+    def timed_train(argv):
+        """cli.train.main(argv) with its dispatches timed -> (result, t0, t_end, dispatches)."""
+        dispatches.clear()
+        loop.make_multi_epoch_fn = timed_make
+        try:
+            t0 = time.perf_counter()
+            res = cli_train.main(argv)
+            torch.cuda.synchronize()
+            return res, t0, time.perf_counter(), list(dispatches)
+        finally:
+            loop.make_multi_epoch_fn = real_make
+
+    on = [] if dev.type == "cuda" else ["--device", str(dev)]  # the card takes the CLIs' default device
+
+    def same_params(a, b):
+        return all(bool(torch.equal(p, q)) for p, q in zip(a.model.parameters(), b.model.parameters()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {k: os.path.join(tmp, k) for k in ("k2", "k1", "first", "rest", "tuned")}
+        reset_counts()
+        k2, t0, t_end, small = timed_train(DRIVER_ARGS + on + ["-o", out["k2"], "-e", "4",
+                                                               "--epochs-per-dispatch", "2"])
+        counts = read_counts()
+        total_s = t_end - t0
+        # the graph is captured once (2 warm-up steps and the capture launch the kernels; replays go
+        # through no wrapper) and each of the 2 validations runs one 128-tile chunk
+        want = {k: 3 * v for k, v in STEP_COUNTS.items()}
+        for k, v in {"plastic_head": HEAD_PER_CHUNK, "residual_tail": TAIL_PER_CHUNK, "conv3x3": CONV_PER_CHUNK}.items():
+            want[k] += 2 * v
+        check(counts == want, f"driver launches {counts} != {want}")
+        print(f"[11] MAIN PATH (driver): cli.train neurons=16, 4 epochs of 32 tiles, dropout 0.5, shuffle, augment, "
+              f"2 epochs a dispatch: launches {counts} (2 warm-up steps + the graph capture + 2 validation chunks; "
+              f"the {len(k2.all_losses)} replayed steps launch through the graph)", flush=True)
+        check(len(k2.all_losses) == 128 and bool(np.isfinite(k2.all_losses).all()), "driver: bad losses")
+        check(len(k2.val_test_losses) == 2 and k2.state.step == 128, "driver: validations or step count")
+
+        k1 = cli_train.main(DRIVER_ARGS + on + ["-o", out["k1"], "-e", "4", "--epochs-per-dispatch", "1"])
+        check(k1.all_losses == k2.all_losses and k1.val_test_losses == k2.val_test_losses and same_params(k1, k2),
+              "driver: 2 epochs a dispatch differ from 1 a dispatch")
+        print("[11] 2 epochs a dispatch == 1 a dispatch, bit for bit: 128 losses, 2 validations, the parameters",
+              flush=True)
+
+        first = cli_train.main(DRIVER_ARGS + on + ["-o", out["first"], "-e", "2"])
+        rest = cli_train.main(DRIVER_ARGS + on + ["-o", out["rest"], "-e", "2", "--resume",
+                                             os.path.join(out["first"], RESUME_STATE)])
+        check(first.all_losses + rest.all_losses == k2.all_losses, "resume: losses differ from the straight run")
+        check(rest.val_test_losses[-1] == k2.val_test_losses[-1] and same_params(rest, k2)
+              and rest.state.step == 128, "resume: parameters or validation differ from the straight run")
+        check(bool(torch.equal(rest.state.generator.get_state(), k2.state.generator.get_state())),
+              "resume: the dropout generator's state differs from the straight run's")
+        print("[11] 2 epochs, then a resume for 2 more == 4 straight, bit for bit: losses, parameters, the last "
+              "validation, the dropout generator's state", flush=True)
+
+        model = UNetPRes(neurons=int(DRIVER_ARGS[DRIVER_ARGS.index("--neurons") + 1]), nbf=101)
+        model.load_state_dict(torch.load(os.path.join(out["k2"], "train_net.pth"), weights_only=True), strict=True)
+        check(all(bool(torch.equal(p.cpu(), q)) for p, q in zip(k2.model.parameters(), model.parameters())),
+              "train_net.pth: weights differ from the run's")
+        with open(os.path.join(out["k2"], "train_parameters.dat"), "rb") as f:
+            rp = pickle.load(f)
+        check(rp["device"] == dev.type and rp["epochs"] == 4, f"train_parameters.dat: {rp}")
+        h5 = os.path.join(out["k2"], "train_data.hdf5")
+        try:
+            import h5py
+        except ImportError:
+            check(not os.path.exists(h5), "train_data.hdf5 written without h5py")
+            h5_note = "h5py is not installed here: train_data.hdf5 not written (the save said so)"
+        else:
+            with h5py.File(h5, "r") as f:
+                check(list(f["train/all_losses"][()]) == k2.all_losses, "train_data.hdf5: losses differ")
+            h5_note = "train_data.hdf5 read back with h5py"
+        print(f"[11] artifacts: train_net.pth loads strict into a fresh UNetPRes(neurons=16) with the run's weights; "
+              f"train_parameters.dat unpickles (device {rp['device']!r}); {h5_note}", flush=True)
+
+        path = cli_tuned.main(TUNED_ARGS + on + ["--out", out["tuned"]])
+        lines = open(path).read().splitlines()
+        check(lines[0] == "id,rle_mask" and [ln.split(",")[0] for ln in lines[1:]] == [f"syn{i}" for i in range(20)],
+              "tuned_run: submission.csv header or ids")
+        print(f"[11] cli.tuned_run --synthetic 40 --epochs 2 --neurons 16: submission.csv with {len(lines) - 1} rows, "
+              f"{sum(1 for ln in lines[1:] if ln.split(',', 1)[1])} non-empty", flush=True)
+
+        # the driver's time at a real epoch: 1 and 2 epochs a dispatch, each run 2 epochs, 1 validation, 1 save;
+        # between them the bare epoch of the same length
+        timed = {}
+        for k in (1, 2):
+            res, t0r, t_endr, ds = timed_train(TIMED_ARGS + on + ["-o", os.path.join(tmp, f"timed{k}"),
+                                                                 "--epochs-per-dispatch", str(k)])
+            check(len(res.all_losses) == 2 * TIMED_TRAIN and bool(np.isfinite(res.all_losses).all()),
+                  f"timed run, {k} epochs a dispatch: bad losses")
+            timed[k] = (t0r, t_endr, ds)
+            if k == 1:
+                bare_epoch_s = time_bare_epoch(dev)
+
+    small_epoch_s = sum(e - b for _, b, e in small[1:]) / sum(n for n, _, _ in small[1:])  # after the capture
+    print(f"[11] driver time (NVIDIA card: {smi}), 32-tile epochs: cli.train 4 epochs {total_s:.3f} s end to end "
+          f"({total_s / 4:.3f} s per epoch, {128 / total_s:.1f} samples/s, with the start-up, the graph capture, 2 "
+          f"validations, 2 saves); dispatches (epochs, s) {[(n, round(e - b, 4)) for n, b, e in small]}; after the "
+          f"first: {small_epoch_s:.4f} s per epoch against the bare graph step's {32 * graph_step_s:.4f} s",
+          flush=True)
+    for k, (t0r, t_endr, ds) in timed.items():
+        total = t_endr - t0r
+        setup, tail = ds[0][1] - t0r, t_endr - ds[-1][2]
+        gaps = [b2 - e1 for (_, _, e1), (_, b2, _) in zip(ds, ds[1:])]  # host bookkeeping and the next draws
+        epochs = sum(n for n, _, _ in ds)
+        epoch_s = (ds[-1][2] - ds[0][1]) / epochs  # dispatches and the gaps between them, per epoch
+        print(f"[11] driver time (NVIDIA card: {smi}), {TIMED_TRAIN}-tile epochs (--synthetic 4000), {k} epoch(s) a "
+              f"dispatch: cli.train 2 epochs {total:.3f} s end to end; set-up {setup:.3f} s ({setup / total:.1%}: "
+              f"start-up, data, staging); dispatches (epochs, s) {[(n, round(e - b, 4)) for n, b, e in ds]}, gaps "
+              f"between them {[round(g, 4) for g in gaps]} s; {epoch_s:.4f} s per epoch, "
+              f"{TIMED_TRAIN / epoch_s:.1f} samples/s (the first dispatch captures the graph); last validation and "
+              f"save {tail:.3f} s ({tail / total:.1%}); the bare epoch (make_epoch_fn's graph alone, same model, "
+              f"{TIMED_TRAIN} steps, between the two runs) {bare_epoch_s:.4f} s, "
+              f"{bare_epoch_s / TIMED_TRAIN * 1e3:.3f} ms per step (phase 10's 48-step bursts: "
+              f"{graph_step_s * 1e3:.3f} ms); driver overhead share {1 - bare_epoch_s / epoch_s:.2%} of an epoch, "
+              f"{1 - epochs * bare_epoch_s / total:.2%} end to end", flush=True)
+    return counts
+
+
+def time_bare_epoch(dev):
+    """Seconds of one TIMED_TRAIN-step epoch of make_epoch_fn alone (the CUDA graph step, the loss copies,
+    no permutation, augmentation or driver), at cli.train's model, rate and dropout under TIMED_ARGS."""
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.train.loop import create_train_state, make_epoch_fn
+
+    X, Y = train_stream(TIMED_TRAIN, 1, seed=26)
+    X, Y = X.to(dev), Y.to(dev)
+    model = UNetPRes(neurons=16, nbf=101, rule="hebb", dropout_ratio=0.5, generator=torch.Generator().manual_seed(5))
+    state = create_train_state(model, 3e-5, 0.666, 1e6, generator=torch.Generator(device=dev).manual_seed(6),
+                               device=dev)
+    epoch = make_epoch_fn()
+    state, _ = epoch(state, X[:2], Y[:2])  # the capture
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, losses = epoch(state, X, Y)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    check(bool(torch.isfinite(losses).all()), "bare epoch: non-finite losses")
+    return seconds
 
 
 def profile_training_step(dev, steps: int = 5):
@@ -1085,7 +1277,11 @@ def main() -> int:
     step_counts = phase_training(dev)
     for entry in kernels:  # the serving kernels are on the training path too
         entry["launches_train_step"] = step_counts[entry["name"]]
-    kernels += phase_training_times(dev, name, bwd_errs, step_counts, fwd_table)
+    more, graph_step_s = phase_training_times(dev, name, bwd_errs, step_counts, fwd_table)
+    kernels += more
+    driver_counts = phase_driver(dev, smi, graph_step_s)
+    for entry in kernels:  # launches of the driver's first run (phase 11)
+        entry["launches_driver"] = driver_counts[entry["name"]]
     print(f"[done] {time.time() - t0:.1f}s; card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -2,9 +2,11 @@
 
 The JAX package stays the reference; this package re-implements its serving
 path (UNetPRes forward with a zero trace, the best-threshold search on
-validation, masks, RLE strings and ``submission.csv``) and its
+validation, masks, RLE strings and ``submission.csv``), its
 reference-parity training step (the B=1 lifetime loop with the detached
-trace, BCE, Adam and a per-sample StepLR; lanes for B>1) in PyTorch, with
+trace, BCE, Adam and a per-sample StepLR; lanes for B>1) and the training
+entry point around it (the driver, checkpoints, data staging and the
+train/eval/infer/tuned_run CLIs) in PyTorch, with
 the TPU's Pallas kernels, forward and backward, replaced by CUDA kernels
 written for Hopper (``csrc/``, built with ``nvcc`` for ``sm_90a`` on first
 use).
@@ -21,6 +23,10 @@ Module paths mirror the JAX package, so each module has its counterpart:
     bias-gradient passes of ops.pallas_trunk's backward
   - ops.residual_tail             <-> ops.pallas_trunk (forward and backward)
   - train.loop, train.optimizer   <-> plastic_unet_tpu.train.loop, .optimizer
+  - train.driver, train.checkpoint, config, cli.{train,eval,infer,tuned_run}
+    <-> their namesakes (the resume-state file replaces the Orbax state)
+  - data.dataset, data.images, data.hdf5_io, ops.augment <-> their namesakes
+    (no pandas or sklearn; PIL and h5py imported where used)
   - eval.evaluate, ops.iou, ops.losses, ops.rle, submit.inference,
     submit.server, data.synthetic, utils.torch_interop, utils.precision
 
@@ -33,7 +39,8 @@ there is no silent fallback to the CPU.
 
 Tests on the CPU: ``python -m pytest tests/test_torch_*.py -q`` (port
 against JAX, the training trajectory included). On the card:
-``python3 chip_smoke.py`` (phases 7-10 are the training path).
+``python3 chip_smoke.py`` (phases 7-10 are the training step, phase 11
+the training entry point).
 """
 
 from __future__ import annotations

@@ -1,0 +1,109 @@
+"""Inference CLI (counterpart of plastic_unet_tpu.cli.infer; reference
+src/infer.py:181-213): best threshold on the validation split (or a fixed
+one), then the test tiles' masks as an RLE ``submission.csv``. The JAX
+parser's flags plus ``--device`` (default CUDA).
+
+    python -m plastic_unet_tpu_torch.cli.infer -m MODEL.pth -i TGS_DIR -o OUT [--device cpu]
+
+Not ported yet, and raising when asked for (ROADMAP.md, queue A item 4):
+TTA views other than the identity, ``--visualize``, ``--save`` (the PNG
+mask dump), ``--quant int8``, ``--devices`` > 1, ``--trunk-pad``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Infer test masks and write the RLE submission")
+    p.add_argument("--model", "-m", default="MODEL.pth", help="file in which the model is stored")
+    p.add_argument("-i", "--data", dest="data_dir", type=str, help="the directory with input test data")
+    p.add_argument("--out", "-o", dest="out_dir", default="./out", help="directory for output images")
+    p.add_argument("-g", "--gpu", action="store_true", dest="gpu", default=False,
+                   help="accepted for reference compatibility; the device is --device")
+    p.add_argument("--visualize", "-v", action="store_true", default=False,
+                   help="visualize the images as they are processed (not ported)")
+    p.add_argument("--save", "-s", action="store_true", default=False, help="save the output masks (not ported)")
+    p.add_argument("--mask-threshold", "-t", dest="mask_threshold", type=float,
+                   help="accepted for reference compatibility; like the reference, the threshold "
+                        "actually used comes from the best-IoU validation search (infer.py:156-171). "
+                        "Use --fixed-threshold to bypass the search.")
+    p.add_argument("--partial", "-p", action="store_true", default=False, help="run on a partial dataset")
+    p.add_argument("--partial-size", "-d", dest="partial_size", default=100, type=int, help="partial dataset size")
+    p.add_argument("--arch", default="unet_res", choices=["unet_res", "unet"], help="model family (unet: not ported)")
+    p.add_argument("--neurons", default=16, type=int)
+    p.add_argument("--prule", default="hebb")
+    p.add_argument("--tta", default="identity",
+                   help="TTA views: preset tta2/tta4/tta8 or a comma list of identity,hflip,vflip,rot90,rot180,"
+                        "rot270,transpose,anti_transpose (only identity is ported)")
+    p.add_argument("--fixed-threshold", dest="fixed_threshold", type=float, default=None,
+                   help="skip the validation threshold search and use this value")
+    p.add_argument("--precision", default="perf", help="perf|parity (the forward runs in true fp32 either way)")
+    p.add_argument("--use-pallas", action="store_true", default=False,
+                   help="accepted; the CUDA plastic head is the only path")
+    p.add_argument("--trunk-pad", type=int, default=0, metavar="SIZE", help="not ported (0 = off)")
+    p.add_argument("--devices", type=int, default=1, help="devices to shard inference over (only 1 is ported)")
+    p.add_argument("--quant", default="none", choices=["none", "int8"], help="int8 serving (not ported)")
+    p.add_argument("--quant-calib", dest="quant_calib", type=int, default=256,
+                   help="number of validation images used for int8 calibration")
+    p.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    lacking = [flag for flag, on in (("--visualize", args.visualize), ("--save", args.save),
+                                     ("--quant int8", args.quant != "none"), ("--devices", args.devices > 1)) if on]
+    if lacking:
+        raise ValueError(f"plastic_unet_tpu_torch.cli.infer does not have {lacking} yet (ROADMAP.md, queue A item 4)")
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    from plastic_unet_tpu_torch.ops.augment import parse_tta
+
+    tta = parse_tta(args.tta)
+    t_img_width, t_img_height, t_img_chan = 101, 101, 1
+
+    if args.data_dir is None:
+        raise ValueError("The input data directory or dataset file not specified")
+
+    from plastic_unet_tpu_torch.data.dataset import load_test_dataset, load_train_dataset
+
+    print("Getting and resizing test images... ")
+    ids, images = load_test_dataset(data_dir=args.data_dir, img_width=t_img_width, img_height=t_img_height,
+                                    img_chan=t_img_chan, partial=args.partial, part_size=args.partial_size)
+    x_train, x_valid, y_train, y_valid = load_train_dataset(
+        data_dir=args.data_dir, img_width=t_img_width, img_height=t_img_height, img_chan=t_img_chan, debug=True
+    )
+    if args.partial:
+        x_valid = x_valid[: args.partial_size]
+        y_valid = y_valid[: args.partial_size]
+    print("Done!")
+
+    from plastic_unet_tpu_torch.cli.eval import load_model
+    from plastic_unet_tpu_torch.config import TrainConfig
+    from plastic_unet_tpu_torch.submit.inference import predict, start_inference
+    from plastic_unet_tpu_torch.utils.precision import matmul_precision
+
+    cfg = TrainConfig(arch=args.arch, neurons=args.neurons, prule=args.prule, im_width=t_img_width,
+                      im_height=t_img_height, im_chan=t_img_chan, use_pallas=args.use_pallas,
+                      trunk_pad=args.trunk_pad)
+    with matmul_precision(args.precision):
+        model = load_model(args.model, cfg, args.device)
+        if args.fixed_threshold is not None:
+            run_params = {
+                "out_dir": args.out_dir,
+                "img_width": t_img_width,
+                "img_height": t_img_height,
+                "img_chan": t_img_chan,
+                "mask_threshold": args.fixed_threshold,
+                "subm_file": "submission.csv",
+            }
+            return predict(model, ids, images, run_params, tta=tta, device=args.device)
+        return start_inference(model, ids, images, x_valid, y_valid, out_dir=args.out_dir, img_width=t_img_width,
+                               img_height=t_img_height, img_chan=t_img_chan, tta=tta, debug=True, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

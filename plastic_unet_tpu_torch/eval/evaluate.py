@@ -54,7 +54,7 @@ def predict_masks(model, X, *, chunk: int = 128, device=None) -> torch.Tensor:
 def eval_net(model, X_val, y_val, *, chunk: int = 128, device=None):
     """Validation pass -> (accuracy, loss) like the reference eval_net:
     accuracy is the per-pixel agreement of (pred > 0.5) with (true > 0),
-    the loss the mean per-sample BCE."""
+    the loss the mean per-sample BCE. Leaves the model in eval mode."""
     dev = resolve_device(device)
     pred = predict_masks(model, X_val, chunk=chunk, device=dev)
     n = pred.shape[0]

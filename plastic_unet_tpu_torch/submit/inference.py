@@ -63,19 +63,20 @@ def write_submission(path: str, ids: Sequence, rles: Sequence[str]) -> None:
             w.writerow([i, r])
 
 
-def predict(model, ids: Sequence, images, run_params: dict, *, chunk: int = 128, device=None) -> str:
+def predict(model, ids: Sequence, images, run_params: dict, *, tta: Sequence[str] = ("identity",), chunk: int = 128,
+            device=None) -> str:
     """Predict all test masks and write the RLE submission CSV.
 
     ids: the tile ids, in the order of ``images``; images: the test tiles,
     reshaped to (N, img_height, img_width, img_chan). run_params carries the
-    geometry, ``mask_threshold``, ``out_dir`` and ``subm_file``. Returns the
-    CSV's path."""
+    geometry, ``mask_threshold``, ``out_dir`` and ``subm_file``; ``tta``
+    the views (only the identity is ported). Returns the CSV's path."""
     X = np.asarray(images, dtype=np.float32).reshape(
         -1, run_params["img_height"], run_params["img_width"], run_params["img_chan"]
     )
     if len(ids) != X.shape[0]:
         raise ValueError(f"{len(ids)} ids for {X.shape[0]} images")
-    preds = predict_masks_tta(model, X, chunk=chunk, device=device)
+    preds = predict_masks_tta(model, X, transforms=tta, chunk=chunk, device=device)
     masks = binarize(preds, run_params["mask_threshold"])
     subm_file = os.path.join(run_params["out_dir"], run_params["subm_file"])
     write_submission(subm_file, ids, encode_batch(masks))
@@ -84,7 +85,7 @@ def predict(model, ids: Sequence, images, run_params: dict, *, chunk: int = 128,
 
 def start_inference(model, ids: Sequence, images, X_valid, y_valid, out_dir: str, img_width: int,
                     img_height: int, img_chan: int, subm_file: str = "submission.csv", *,
-                    chunk: int = 128, device=None, debug: bool = False) -> str:
+                    tta: Sequence[str] = ("identity",), chunk: int = 128, device=None, debug: bool = False) -> str:
     """Best-threshold search on validation, then the test prediction.
     X_valid arrives NCHW (the reference data contract) and is transposed
     to NHWC here."""
@@ -101,4 +102,4 @@ def start_inference(model, ids: Sequence, images, X_valid, y_valid, out_dir: str
         "subm_file": subm_file,
     }
     os.makedirs(out_dir, exist_ok=True)
-    return predict(model, ids, images, run_params, chunk=chunk, device=device)
+    return predict(model, ids, images, run_params, tta=tta, chunk=chunk, device=device)

@@ -1,0 +1,331 @@
+"""Training driver (counterpart of plastic_unet_tpu.train.driver): the
+reference's train()/start_train() flow (src/train.py:29-314) around the
+port's epoch loop.
+
+Observable behaviour kept from the JAX driver:
+  * the per-epoch trace re-zero (train.py:88) and the per-sample stream;
+  * the predictive wall-clock stop: end when the estimated end of the next
+    dispatch would pass stop_time (train.py:118-122), the per-epoch time
+    scaled by the next chunk's length;
+  * validation every val_every epochs and at the end; checkpoints every
+    save_every epochs and at the end, with file names rolled every
+    `rollout` epochs (train.py:131-203), in the reference's formats
+    (train.checkpoint);
+  * the NaN abort, which saves NAN_ABORT_* with the losses up to the first
+    bad epoch of the dispatch;
+  * KeyboardInterrupt and SIGTERM save INTERRUPTED_* (train.py:306-312);
+  * resume from a reference .pth (``load``) or, exactly, from the port's
+    resume-state file (``resume_orbax``, train.checkpoint.save_train_state);
+  * both forms of the train.py:115 epoch-loss quirk (``quirk_epoch_loss``).
+
+How the port runs it: the stream goes to the device once (NHWC); every
+dispatch folds up to ``epochs_per_dispatch`` epochs (train.loop.
+make_multi_epoch_fn, the step replayed from a CUDA graph on the card) and
+its losses come back in one transfer. Dropout, shuffle and augmentation
+each draw from their own ``torch.Generator`` on the device, seeded from
+``cfg.seed`` (+0, +1, +2): their streams are not the JAX package's, so a
+run with any of them on follows its own trajectory, reproducible from the
+seed, and resumes bit for bit from the resume-state file.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from plastic_unet_tpu_torch import resolve_device
+from plastic_unet_tpu_torch.config import TrainConfig
+from plastic_unet_tpu_torch.eval.evaluate import eval_net
+from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+from plastic_unet_tpu_torch.ops.augment import draw_augment_choices
+from plastic_unet_tpu_torch.train import loop
+from plastic_unet_tpu_torch.train.checkpoint import load_train_state, save_reference_artifacts, save_train_state
+from plastic_unet_tpu_torch.train.loop import TrainState, create_train_state, reshape_stream
+from plastic_unet_tpu_torch.utils.precision import matmul_precision
+
+RESUME_STATE = "train_state.pt"  # the port's counterpart of the JAX driver's orbax_state directory
+
+
+def build_model(cfg: TrainConfig) -> UNetPRes:
+    """The configured UNetPRes (nbf = image width, as at every reference
+    call site), its weights drawn from ``cfg.seed``. Raises ValueError
+    naming every option the port does not have (ROADMAP.md, queue A)."""
+    bad = [name for name in ("trunk_pad", "patch_conv", "remat_trunk", "fast_dw", "batch_norm", "bilinear_upsample")
+           if getattr(cfg, name)]
+    for name, ported in (("arch", "unet_res"), ("compute_dtype", "float32"), ("rng_impl", "threefry")):
+        if getattr(cfg, name) != ported:
+            bad.append(f"{name}={getattr(cfg, name)!r}")
+    if cfg.devices > 1:
+        bad.append(f"devices={cfg.devices}")
+    if bad:
+        raise ValueError(f"plastic_unet_tpu_torch does not have {bad} yet (ROADMAP.md, queue A); "
+                         "the JAX package does")
+    return UNetPRes(n_channels=cfg.im_chan, n_classes=1, neurons=cfg.neurons, dropout_ratio=cfg.dropout_ratio,
+                    alfa_type=cfg.alfa_type, rule=cfg.prule, nbf=cfg.im_width, plastic=cfg.plastic,
+                    generator=torch.Generator().manual_seed(cfg.seed))
+
+
+def name_map_for(cfg: TrainConfig) -> dict:
+    """flax path -> (state_dict key, transpose) of the configured model; a
+    plastic=False model has no head keys."""
+    from plastic_unet_tpu_torch.utils.torch_interop import unetp_res_name_map
+
+    if cfg.arch != "unet_res":
+        raise ValueError(f"plastic_unet_tpu_torch has no name map for arch {cfg.arch!r}")
+    m = unetp_res_name_map()
+    if not cfg.plastic:
+        m = {k: v for k, v in m.items() if k not in (("w",), ("alpha",), ("eta",))}
+    return m
+
+
+def load_reference_weights(model: torch.nn.Module, path: str, cfg: TrainConfig) -> None:
+    """A reference-format .pth into ``model`` in place (strict over the
+    configured model's keys; a plastic=False model ignores the head's)."""
+    from plastic_unet_tpu_torch.utils.torch_interop import load_pth
+
+    sd = load_pth(path)
+    keys = [torch_key for torch_key, _ in name_map_for(cfg).values()]
+    missing = [k for k in keys if k not in sd]
+    if missing:
+        raise KeyError(f"{path}: missing {missing}")
+    model.load_state_dict({k: sd[k] for k in keys}, strict=True)
+
+
+def chunk_epochs(e: int, total_epochs: int, max_chunk: int, periods) -> int:
+    """Multi-epoch-dispatch chunk size starting at epoch e (0-based): as
+    many epochs as max_chunk allows, but never PAST an epoch where a periodic
+    event fires (validation/save/rollout at (epoch+1) % period == 0); the
+    chunk's last epoch may be the event epoch."""
+    k = total_epochs - e
+    for period in periods:
+        if period > 0:
+            k = min(k, period - (e % period))
+    return max(1, min(k, max_chunk))
+
+
+class TrainResult:
+    def __init__(self, state, all_losses, val_train_losses, val_test_losses, val_accuracies, model):
+        self.state = state
+        self.all_losses = all_losses
+        self.val_train_losses = val_train_losses
+        self.val_test_losses = val_test_losses
+        self.val_accuracies = val_accuracies
+        self.model = model
+
+
+def _nchw_to_device(x, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(x, np.float32), (0, 2, 3, 1)))).to(dev)
+
+
+def train(state: TrainState, x_train, x_val, y_train, y_val, cfg: TrainConfig, stop_time: float | None = None,
+          generators: dict | None = None) -> TrainResult:
+    """Run the epoch loop. Arrays arrive in the reference's NCHW contract and
+    are staged to the device NHWC once. ``generators`` holds the "shuffle"
+    and "augment" generators (needed when those are on)."""
+    print("Train samples shape:", x_train.shape)
+    print("Train labels shape:", y_train.shape)
+    print("Validation samples shape:", x_val.shape)
+    print("Validation labels shape:", y_val.shape)
+    print(cfg)
+    generators = generators or {}
+    model, dev = state.model, state.hebb.device
+
+    stop_time = cfg.stop_time if stop_time is None else stop_time
+    if stop_time > 0:
+        print(
+            "Training started at: [%s] and set to stop at: [%s]"
+            % (
+                datetime.fromtimestamp(time.time()).strftime("%B %d, %Y %H:%M:%S"),
+                datetime.fromtimestamp(stop_time).strftime("%B %d, %Y %H:%M:%S"),
+            )
+        )
+
+    X = _nchw_to_device(x_train, dev)
+    Y = torch.from_numpy(np.asarray(y_train, np.float32).reshape(y_train.shape[0], cfg.im_height, cfg.im_width)).to(dev)
+    Xl, Yl = reshape_stream(X, Y, cfg.lanes)
+    del X, Y
+    samples_count = Xl.shape[0]  # one recorded loss per step
+    n_stream = Xl.shape[0] * Xl.shape[1]
+    xv = _nchw_to_device(x_val, dev)
+    yv = torch.from_numpy(np.asarray(y_val, np.float32)).to(dev)
+
+    run_epochs = loop.make_multi_epoch_fn(loss_space=cfg.loss_space, shuffle=cfg.shuffle, augment=cfg.augment)
+    run_params = cfg.as_run_params(stop_time, device=dev.type)
+
+    def artifacts(prefix: str) -> None:
+        save_reference_artifacts(os.path.join(cfg.out_dir, prefix), model, run_params, all_losses,
+                                 val_train_losses, val_test_losses, val_accuracies)
+
+    all_losses: list[float] = []
+    val_train_losses: list[float] = []
+    val_test_losses: list[float] = []
+    val_accuracies: list[float] = []
+    loss_between_saves = 0.0
+    last_save_epoch = 0
+    use_chunks = cfg.epochs_per_dispatch > 1
+
+    def _chunk_epochs(e: int) -> int:
+        return chunk_epochs(e, cfg.epochs, cfg.epochs_per_dispatch, (cfg.val_every, cfg.save_every, cfg.rollout))
+
+    try:
+        epoch = 0
+        while epoch < cfg.epochs:
+            k_epochs = _chunk_epochs(epoch) if use_chunks else 1
+            if cfg.debug:
+                print("Starting epoch %d/%d." % (epoch + 1, cfg.epochs))
+            epoch_start_time = time.time()
+
+            # the draws of the K epochs, in the one-epoch path's order (each stream its own generator)
+            perms = choices = None
+            if cfg.shuffle:
+                perms = torch.stack([torch.randperm(n_stream, generator=generators["shuffle"], device=dev)
+                                     for _ in range(k_epochs)])
+            if cfg.augment:
+                choices = torch.stack([draw_augment_choices(n_stream, generators["augment"])
+                                       for _ in range(k_epochs)])
+            state, losses = run_epochs(state, Xl, Yl, perms, choices, epochs=k_epochs)
+            losses_rows = losses.cpu().numpy().astype(np.float64)  # the dispatch's one transfer
+
+            if not np.all(np.isfinite(losses_rows)):
+                # save before dying, with the losses up to the first non-finite epoch row
+                # (later epochs of the chunk never happened from the loop's view)
+                bad_row = int(np.argmax(~np.isfinite(losses_rows).all(axis=1)))
+                all_losses.extend(losses_rows[: bad_row + 1].reshape(-1).tolist())
+                artifacts("NAN_ABORT")
+                raise FloatingPointError(
+                    f"non-finite training loss at epoch {epoch + bad_row} "
+                    f"(dispatch chunk starting at epoch {epoch}, row {bad_row}); "
+                    "state saved to NAN_ABORT_*"
+                )
+
+            epoch_time = (time.time() - epoch_start_time) / k_epochs
+            for row in losses_rows:
+                all_losses.extend(row.tolist())
+                if cfg.quirk_epoch_loss:
+                    # train.py:115 quirk: indexes ONE element (missing ':')
+                    epoch_loss = float(np.mean(all_losses[-samples_count]))
+                else:
+                    epoch_loss = float(np.mean(all_losses[-samples_count:]))
+                loss_between_saves += epoch_loss
+
+            epoch += k_epochs - 1  # the bookkeeping below sees the chunk's last epoch
+            next_k = _chunk_epochs(epoch + 1) if (use_chunks and epoch + 1 < cfg.epochs) else 1
+            next_epoch_finish_time = epoch_time * next_k + time.time()
+            terminate_training = (stop_time > 0 and next_epoch_finish_time >= stop_time) or (epoch + 1) == cfg.epochs
+
+            if cfg.debug:
+                print(
+                    "Epoch finished! Loss: %f, time spent: %d, terminate due to time limits: %s"
+                    % (epoch_loss, epoch_time, terminate_training)
+                )
+
+            if (epoch + 1) % cfg.val_every == 0 or terminate_training:
+                val_acc, val_loss = eval_net(model, xv, yv, device=dev)
+                model.train()  # eval_net leaves it in eval mode; the parameters stay where the graph holds them
+                val_train_losses.append(epoch_loss)
+                val_test_losses.append(val_loss)
+                val_accuracies.append(val_acc)
+                if cfg.debug:
+                    print("Validation accuracy: %f, loss: %f" % (val_acc, val_loss))
+                    if cfg.plastic:
+                        print("Eta:", model.eta.detach().cpu().numpy())
+                    sys.stdout.flush()
+
+            if (epoch + 1) % cfg.save_every == 0 or terminate_training:
+                if cfg.debug:
+                    print("Saving checkpoint files for epoch:", epoch)
+                epochs_since_last_cp = max(epoch - last_save_epoch, 1)
+                last_save_epoch = epoch
+                if cfg.debug:
+                    print(
+                        "Average loss over the last %d epochs: %f"
+                        % (epochs_since_last_cp, loss_between_saves / epochs_since_last_cp)
+                    )
+                if epoch > 100:
+                    # train.py:167-170: one element 100 epochs back under the same quirk flag
+                    if cfg.quirk_epoch_loss:
+                        loss_last_100 = float(np.mean(all_losses[-samples_count * 100]))
+                    else:
+                        loss_last_100 = float(np.mean(all_losses[-samples_count * 100 :]))
+                    if cfg.debug:
+                        print("Average loss over the last 100 epochs: ", loss_last_100)
+                loss_between_saves = 0.0
+
+                prefix = "train"
+                if (epoch + 1) % cfg.rollout == 0 and not terminate_training:
+                    prefix = prefix + "_" + str(epoch + 1)
+                artifacts(prefix)
+                save_train_state(os.path.join(cfg.out_dir, RESUME_STATE), state, generators)
+
+            if terminate_training:
+                if stop_time > 0 and next_epoch_finish_time >= stop_time:
+                    print("Training terminated due to the time limits!")
+                    print("Current epoch %d, train loss: %s" % (epoch, epoch_loss))
+                    print(
+                        "Stop time limit: %d, estimated time of next epoch end: %d"
+                        % (stop_time, next_epoch_finish_time)
+                    )
+                break
+            epoch += 1
+    except KeyboardInterrupt:
+        artifacts("INTERRUPTED")
+        print("Saved interrupt")
+        raise
+
+    return TrainResult(state, all_losses, val_train_losses, val_test_losses, val_accuracies, model)
+
+
+class _sigterm_as_interrupt:
+    """Route SIGTERM through the KeyboardInterrupt save path (cloud
+    schedulers preempt with SIGTERM). No-op off the main thread, where
+    signal.signal raises ValueError."""
+
+    def __enter__(self):
+        import signal
+
+        def raise_interrupt(signum, frame):
+            raise KeyboardInterrupt
+
+        self._prev = None
+        try:
+            self._prev = signal.signal(signal.SIGTERM, raise_interrupt)
+        except ValueError:
+            pass
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        if self._prev is not None:
+            signal.signal(signal.SIGTERM, self._prev)
+        return False
+
+
+def start_train(x_train, x_valid, y_train, y_valid, cfg: TrainConfig, device=None) -> TrainResult:
+    """Create (or resume) the model and run training (reference start_train,
+    train.py:213-314). ``device=None`` means CUDA and raises without it;
+    pass ``device="cpu"`` to run the plain versions on the CPU."""
+    dev = resolve_device(device)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+
+    with matmul_precision(cfg.matmul_precision):
+        model = build_model(cfg)
+        dropout, shuffle, augment = (torch.Generator(device=dev).manual_seed(cfg.seed + i) for i in range(3))
+        generators = {"shuffle": shuffle, "augment": augment}
+        state = create_train_state(model, cfg.lr, cfg.gamma, cfg.steplr, lanes=cfg.lanes, generator=dropout,
+                                   device=dev)
+        if cfg.resume_orbax:
+            load_train_state(cfg.resume_orbax, state, generators)
+            print("TrainState restored from %s (step %d)" % (cfg.resume_orbax, state.step))
+        elif cfg.load:
+            load_reference_weights(model, cfg.model_path, cfg)
+            print("Model loaded from %s" % cfg.model_path)
+
+        with _sigterm_as_interrupt():
+            return train(state, x_train, x_valid, y_train, y_valid, cfg, stop_time=cfg.stop_time,
+                         generators=generators)

@@ -220,6 +220,46 @@ def make_epoch_fn(*, loss_space: str = "logits", graph: bool | None = None) -> C
     return epoch
 
 
+def make_multi_epoch_fn(*, loss_space: str = "logits", shuffle: bool = False, augment: bool = False) -> Callable:
+    """Build the K-epoch function (the counterpart of the JAX package's
+    one-dispatch scan over epochs).
+
+    Signature: ``(state, X, Y, perms, choices, *, epochs) -> (state, losses (K, S))``
+      X: (S, B, H, W, C), Y: (S, B, H, W), resident on the model's device.
+      perms: (K, S*B) int64 or None, a permutation of the flattened stream
+      per epoch (when ``shuffle``); choices: (K, S*B, 3) or None, the
+      augmentation choices per epoch (when ``augment``, see
+      ops.augment.augment_stream). Both live on the device; the caller draws
+      them in the order of the one-epoch path. ``epochs`` is K.
+    Each epoch re-zeroes the trace in place, permutes the flattened stream,
+    augments it and runs the per-sample loop of :func:`make_epoch_fn` (the
+    CUDA graph on the card). The (K, S) losses stay on the device."""
+    from plastic_unet_tpu_torch.ops.augment import augment_stream
+
+    epoch_fn = make_epoch_fn(loss_space=loss_space)
+
+    def run(state: TrainState, X: torch.Tensor, Y: torch.Tensor, perms=None, choices=None, *, epochs: int):
+        k, n = epochs, X.shape[0] * X.shape[1]
+        if shuffle and tuple(perms.shape) != (k, n):
+            raise ValueError(f"make_multi_epoch_fn: perms {tuple(perms.shape)} != ({k}, {n})")
+        if augment and tuple(choices.shape) != (k, n, 3):
+            raise ValueError(f"make_multi_epoch_fn: choices {tuple(choices.shape)} != ({k}, {n}, 3)")
+        flat_x, flat_y = X.reshape((n,) + tuple(X.shape[2:])), Y.reshape((n,) + tuple(Y.shape[2:]))
+        rows = []
+        for j in range(k):
+            xe, ye = flat_x, flat_y
+            if shuffle:
+                xe, ye = xe[perms[j]], ye[perms[j]]
+            if augment:
+                xe, ye = augment_stream(xe, ye, choices[j])
+            state.hebb.zero_()  # fresh trace per epoch, in place: a captured graph holds its address
+            state, losses = epoch_fn(state, xe.reshape(X.shape), ye.reshape(Y.shape))
+            rows.append(losses)
+        return state, torch.stack(rows)
+
+    return run
+
+
 def reshape_stream(X, Y, lanes: int):
     """Split a sample stream (N, ...) into (S, B, ...) lanes for the epoch.
     Trailing remainder samples are dropped in lane mode (B>1); B=1 keeps all.

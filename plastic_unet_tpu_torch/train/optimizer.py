@@ -37,6 +37,11 @@ class StepLR:
             else:
                 group["lr"] = lr
 
+    def restore(self, steps: int) -> None:
+        """Set the count of :meth:`step` calls (a resume) and the rate that goes with it."""
+        self.last_epoch = int(steps)
+        self._set(self.get_last_lr())
+
     def step(self) -> None:
         self.last_epoch += 1
         if self.last_epoch % self.step_size == 0:

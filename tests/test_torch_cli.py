@@ -1,0 +1,131 @@
+"""The port's CLIs (python -m plastic_unet_tpu_torch.cli.{train,eval,infer,
+tuned_run}): every option string, default and choice of the JAX parsers;
+runs on the CPU with --device cpu (synthetic training, the tuned run to
+submission.csv, eval and infer on a fake TGS directory with a .pth the
+training wrote, held against the JAX CLIs); CUDA by default; the flags of
+options the port lacks raise."""
+
+import argparse
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from plastic_unet_tpu.cli import eval as jeval
+from plastic_unet_tpu.cli import infer as jinfer
+from plastic_unet_tpu.cli import train as jtrain
+from plastic_unet_tpu.cli import tuned_run as jtuned
+from plastic_unet_tpu_torch.cli import eval as teval
+from plastic_unet_tpu_torch.cli import infer as tinfer
+from plastic_unet_tpu_torch.cli import train as ttrain
+from plastic_unet_tpu_torch.cli import tuned_run as ttuned
+from test_torch_dataset import make_tgs_dir
+
+torch.set_num_threads(2)
+
+PAIRS = [(jtrain, ttrain), (jeval, teval), (jinfer, tinfer), (jtuned, ttuned)]
+
+
+def _actions(parser):
+    return {a.dest: a for a in parser._actions if not isinstance(a, argparse._HelpAction)}
+
+
+@pytest.mark.parametrize("jmod,tmod", PAIRS, ids=["train", "eval", "infer", "tuned_run"])
+def test_parser_keeps_every_jax_flag(jmod, tmod):
+    want, got = _actions(jmod.build_parser()), _actions(tmod.build_parser())
+    for dest, a in want.items():
+        assert dest in got, dest
+        b = got[dest]
+        assert set(a.option_strings) <= set(b.option_strings), dest
+        assert (b.default, b.choices, b.type, b.required, type(b)) == (a.default, a.choices, a.type, a.required,
+                                                                       type(a)), dest
+    assert got["device"].default is None and "--device" in got["device"].option_strings
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """cli.train --synthetic 10 on the CPU: its out dir."""
+    out = tmp_path_factory.mktemp("train")
+    result = ttrain.main(["--synthetic", "10", "-o", str(out), "-e", "2", "--neurons", "2", "--validate_every", "1",
+                          "--shuffle", "--augment", "--epochs-per-dispatch", "2", "--device", "cpu"])
+    return out, result
+
+
+def test_cli_train_synthetic(trained):
+    out, result = trained
+    assert len(result.all_losses) == 2 * 8 and np.isfinite(result.all_losses).all()
+    assert len(result.val_test_losses) == 2 and result.state.step == 16
+    for f in ("train_net.pth", "train_parameters.dat", "train_data.hdf5", "train_state.pt"):
+        assert os.path.exists(out / f), f
+
+
+def test_cli_train_resume_continues(trained, tmp_path):
+    out, first = trained
+    more = ttrain.main(["--synthetic", "10", "-o", str(tmp_path), "-e", "1", "--neurons", "2", "--shuffle",
+                        "--augment", "--resume", str(out / "train_state.pt"), "--device", "cpu"])
+    assert more.state.step == 24 and more.state.scheduler.last_epoch == 24
+
+
+def test_cli_tuned_run_writes_submission(tmp_path):
+    path = ttuned.main(["--synthetic", "10", "--epochs", "1", "--neurons", "2", "--out", str(tmp_path),
+                        "--device", "cpu"])
+    assert path == str(tmp_path / "submission.csv")
+    lines = open(path).read().splitlines()
+    assert lines[0] == "id,rle_mask" and [ln.split(",")[0] for ln in lines[1:]] == [f"syn{i}" for i in range(5)]
+    assert os.path.exists(tmp_path / "train_net.pth")
+
+
+@pytest.fixture(scope="module")
+def tgs_dir(tmp_path_factory):
+    return make_tgs_dir(tmp_path_factory.mktemp("tgs"))
+
+
+def test_cli_eval_matches_jax(trained, tgs_dir):
+    pth = str(trained[0] / "train_net.pth")
+    thr, iou = teval.main(["-m", pth, "-i", tgs_dir, "--neurons", "2", "--precision", "parity", "--device", "cpu"])
+    jthr, jiou = jeval.main(["-m", pth, "-i", tgs_dir, "--neurons", "2", "--precision", "parity"])
+    assert thr == jthr
+    assert iou == pytest.approx(jiou, abs=1e-6)
+
+
+def test_cli_infer_matches_jax(trained, tgs_dir, tmp_path):
+    pth = str(trained[0] / "train_net.pth")
+    for extra in ([], ["--fixed-threshold", "0.5", "--partial", "-d", "4"]):
+        got = tinfer.main(["-m", pth, "-i", tgs_dir, "-o", str(tmp_path / "port"), "--neurons", "2",
+                           "--precision", "parity", "--device", "cpu"] + extra)
+        jinfer.main(["-m", pth, "-i", tgs_dir, "-o", str(tmp_path / "jax"), "--neurons", "2",
+                     "--precision", "parity"] + extra)
+        text = open(got).read()
+        assert text == open(tmp_path / "jax" / "submission.csv").read()
+        assert len(text.splitlines()) == 1 + (4 if extra else 7)
+
+
+def test_cli_default_device_is_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the refusal shows only without one")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--synthetic", "10", "-o", str(tmp_path), "-e", "1", "--neurons", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttuned.main(["--synthetic", "10", "--epochs", "1", "--neurons", "2", "--out", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flags", [["--trunk-pad", "128"], ["--arch", "unet"], ["--devices", "2"],
+                                   ["--compute-dtype", "bfloat16"], ["--rng-impl", "rbg"], ["--fast-dw"],
+                                   ["--remat-trunk"], ["--patch-conv", "32"]])
+def test_cli_train_unported_flags_raise(tmp_path, flags):
+    with pytest.raises(ValueError, match="does not have"):
+        ttrain.main(["--synthetic", "10", "-o", str(tmp_path), "-e", "1", "--neurons", "2", "--device", "cpu"]
+                    + flags)
+
+
+def test_cli_infer_unported_flags_raise(trained, tgs_dir, tmp_path):
+    pth = str(trained[0] / "train_net.pth")
+    base = ["-m", pth, "-i", tgs_dir, "-o", str(tmp_path), "--neurons", "2", "--device", "cpu"]
+    for flags in (["--save"], ["--visualize"], ["--quant", "int8"], ["--devices", "2"]):
+        with pytest.raises(ValueError, match="does not have"):
+            tinfer.main(base + flags)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tinfer.main(base + ["--tta", "tta2", "--fixed-threshold", "0.5"])
+    with pytest.raises(ValueError, match="unknown TTA"):
+        tinfer.main(base + ["--tta", "flip"])

@@ -129,6 +129,23 @@ def test_eval_net_matches_jax():
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
 
+def test_start_inference_takes_tta(tmp_path):
+    """predict and start_inference take the views; the identity is the
+    default path, any other view raises until TTA is ported."""
+    tm = UNetPRes(neurons=2, nbf=16, generator=torch.Generator().manual_seed(2))
+    xt, xv, _, yv = synthetic_split(3, 4, size=16, seed=5)
+    ids, imgs = ["a", "b", "c"], xt[:, 0]
+    args = (tm, ids, imgs, xv, yv, str(tmp_path), 16, 16, 1)
+    plain = open(tinf.start_inference(*args, device="cpu")).read()
+    assert open(tinf.start_inference(*args, tta=("identity",), device="cpu")).read() == plain
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tinf.start_inference(*args, tta=("identity", "hflip"), device="cpu")
+    rp = {"out_dir": str(tmp_path), "img_height": 16, "img_width": 16, "img_chan": 1, "mask_threshold": 0.5,
+          "subm_file": "s.csv"}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tinf.predict(tm, ids, imgs, rp, tta=("vflip",), device="cpu")
+
+
 @pytest.mark.parametrize("hard", [False, True])
 def test_synthetic_tiles_byte_equal(hard):
     got = synthetic_split(5, 3, size=33, seed=12, hard=hard)
