@@ -78,12 +78,28 @@ is non-zero:
      submission.csv; the launch counts of the driver's run (warm-up, capture
      and validation chunks); the driver's time per epoch against the bare
      graph step of phase 10.
+  12. the serving features at full width (UNetPRes neurons=16, nbf=101,
+     seeded weights, fp32 parity, 512 synthetic tiles = 4 chunks): the 8
+     TTA views' inverses exact on the card; tta8 with the views folded into
+     the batch equal to one pass a view, bit for bit, each 32 chunks of
+     launches; tta4 on 8 tiles against the CPU port (rtol 1e-5, atol 1e-6);
+     inference() on 3 single images (B=1 plans) against the chunked rows;
+     the int8 convs (torch._int_mm) against their float64 plain versions
+     at every level shape, bit for bit; calibration on 256 tiles (49
+     ranges; 2 chunks of launches) and the int8 forward (the head only)
+     against the CPU port with the card's ranges (atol 1e-5); the HTTP
+     endpoint on 127.0.0.1 (a 128-tile tta4 /predict and /predict_rle equal
+     to the predictor's, /healthz naming the card, the request's median
+     latency); cli.infer --tta tta4 --save --quant int8 on a fake TGS
+     directory (PNGs equal to their RLE rows); tiles/s at the identity,
+     tta4 and tta8 batched, tta8 sequential, int8.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
 belong to the entry's "shape"; "launches" counts the serving request of
 phase 5 (the backward kernels: one eager training step), launches_train_step
 one eager training step (phase 9), launches_driver the driver's first run
-of phase 11; keys ending in _b1 or _b128 give the same at the other batch size, max_abs_err_all_shapes the largest over every case,
+of phase 11, launches_tta8_batched / launches_calib / launches_int8 the
+paths of phase 12; keys ending in _b1 or _b128 give the same at the other batch size, max_abs_err_all_shapes the largest over every case,
 library_det_ms the library call under deterministic cuDNN, bmm_ms the
 head's product alone as one torch.bmm call.
 
@@ -94,12 +110,14 @@ The line before the last is the kernels' JSON; the last line is
 from __future__ import annotations
 
 import copy
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -1202,6 +1220,295 @@ def phase_driver(dev, smi, graph_step_s):
     return counts
 
 
+# --------------------------------------------------------------------------- phase 12
+
+SERVE_TILES, CALIB_TILES, PARITY_TILES, SERVE_NEURONS = 512, 256, 8, 16
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6  # card against the CPU port, fp32 serving
+INT8_ATOL = 1e-5  # int8 probabilities, card against the CPU port (tests/test_torch_quant.py)
+# (H=W, Cin, Cout) of the 45 quantized 3x3 convs' distinct shapes (entry convs, the Middles' entries in the
+# decoder, the tails) and (H=W of the input, Cin, Cout) of the 4 ConvTransposes, at neurons=16
+QCONV_SHAPES = ([(101, 1, 16), (50, 16, 32), (25, 32, 64), (12, 64, 128), (6, 128, 256)]
+                + [(12, 256, 128), (25, 128, 64), (50, 64, 32), (101, 32, 16)]
+                + [(hw, c, c) for hw, c in LEVELS])
+QCONVT_SHAPES = [(6, 256, 128), (12, 128, 64), (25, 64, 32), (50, 32, 16)]
+
+
+def write_tgs_dir(root: str, n: int = 30, n_test: int = 7, size: int = 101, seed: int = 0) -> str:
+    """A small fake TGS directory (the layout of tests/test_torch_dataset.py::make_tgs_dir)."""
+    from PIL import Image
+
+    for sub in ("train/images", "train/masks", "test/images"):
+        os.makedirs(os.path.join(root, sub))
+    rng = np.random.default_rng(seed)
+    ids = [f"id{i:03d}" for i in range(n)]
+    for i, idx in enumerate(ids):
+        Image.fromarray((rng.random((size, size)) * 255).astype(np.uint8)).save(
+            os.path.join(root, "train/images", f"{idx}.png"))
+        mask = np.zeros((size, size), np.uint16)
+        mask[: size * (i % 5) // 5] = 65535
+        Image.fromarray(mask).save(os.path.join(root, "train/masks", f"{idx}.png"))
+    for j in range(n_test):
+        Image.fromarray((rng.random((size, size)) * 255).astype(np.uint8)).save(
+            os.path.join(root, "test/images", f"t{j}.png"))
+    with open(os.path.join(root, "train.csv"), "w") as f:
+        f.write("id,rle_mask\n" + "\n".join(f"{i}," for i in ids))
+    with open(os.path.join(root, "depths.csv"), "w") as f:
+        f.write("id,z\n" + "\n".join(f"{i},{100 + 3 * k}" for k, i in enumerate(ids + ["t0", "t1"])))
+    return root
+
+
+def expect_launches(label: str, want: dict) -> dict:
+    """The launch counts since the last reset_counts() are ``want`` (0 for every kernel not named)."""
+    counts = read_counts()
+    full = dict.fromkeys(COUNTED, 0)
+    full.update(want)
+    check(counts == full, f"{label}: launches {counts} != {full}")
+    print(f"[12] {label}: launches {({k: v for k, v in counts.items() if v})}", flush=True)
+    return counts
+
+
+def first_unrepeatable_layer(model, x, tries: int = 5):
+    """Pairs of forwards of the chunk ``x`` with zero traces, up to ``tries``:
+    (name, max|diff|) of the first module, in call order (a cuDNN layer, or a
+    DownRes / Middle / UpRes, whose tails are this package's kernels), whose
+    output differs within a pair, or None if every pair agreed."""
+    from plastic_unet_tpu_torch.utils.precision import matmul_precision
+
+    runs, hooks = [], []
+    for name, m in model.named_modules():
+        if name:
+            hooks.append(m.register_forward_hook(lambda _m, _i, out, name=name: runs[-1].append((name, out.clone()))))
+    try:
+        with torch.inference_mode(), matmul_precision("parity"):
+            for _ in range(tries):
+                runs[:] = []
+                for _ in range(2):
+                    runs.append([])
+                    model(x, model.initial_zero_hebb(x.shape[0], device=x.device))
+                for (name, a), (_, b) in zip(*runs):
+                    if not torch.equal(a, b):
+                        return name, float((a - b).abs().max())
+    finally:
+        for h in hooks:
+            h.remove()
+    return None
+
+
+def phase_serving_features(dev, smi):
+    """The serving features at full width (UNetPRes neurons=16, nbf=101, seeded weights, fp32 parity) on
+    SERVE_TILES synthetic tiles: the TTA views, tta8 batched against sequential, tta4 against the CPU port,
+    the single-image inference(), the int8 convs against their float64 plain versions at every level shape,
+    calibration, the int8 forward against the CPU port with the card's ranges, the HTTP endpoint and
+    cli.infer --tta tta4 --save --quant int8; launch counts of each path; tiles/s and latencies."""
+    from plastic_unet_tpu_torch.cli import infer as cli_infer
+    from plastic_unet_tpu_torch.data.synthetic import synthetic_tiles
+    from plastic_unet_tpu_torch.eval.evaluate import predict_masks
+    from plastic_unet_tpu_torch.ops import quant as tq
+    from plastic_unet_tpu_torch.ops.augment import TTA_TRANSFORMS, TTA_VIEWS_4, TTA_VIEWS_8, tta_merge
+    from plastic_unet_tpu_torch.ops.rle import rle_decode
+    from plastic_unet_tpu_torch.submit.http_server import serve
+    from plastic_unet_tpu_torch.submit.inference import inference, predict_masks_tta
+    from plastic_unet_tpu_torch.submit.quant import quantize_for_serving
+    from plastic_unet_tpu_torch.submit.server import MaskPredictor
+    from plastic_unet_tpu_torch.utils.precision import training_numerics
+
+    t_phase = time.time()
+    imgs, _ = synthetic_tiles(SERVE_TILES, size=101, seed=78)
+    tiles = np.ascontiguousarray(imgs[:, 0, :, :, None])  # (512, 101, 101, 1) NHWC
+    X = torch.from_numpy(tiles).to(dev)
+    model = seeded_model(SERVE_NEURONS, "oja", 0).to(dev).eval()
+    cpu_model = seeded_model(SERVE_NEURONS, "oja", 0).eval()
+    chunks = SERVE_TILES // B
+
+    for v, (fwd, inv) in TTA_TRANSFORMS.items():
+        back = inv(fwd(X, True).contiguous()[..., 0], False)
+        check(bool(torch.equal(back, X[..., 0])), f"TTA view {v}: inverse(forward) is not the identity on the card")
+    print(f"[12] the 8 TTA views: inverse(forward(x)) == x on the card, bit for bit, {SERVE_TILES} tiles", flush=True)
+
+    counts = {}
+    outs = {}
+    for label, batch in (("sequential", False), ("batched", True)):
+        reset_counts()
+        outs[label] = predict_masks_tta(model, X, transforms=TTA_VIEWS_8, batch_views=batch, device=dev)
+        torch.cuda.synchronize()
+        counts[f"tta8_{label}"] = expect_launches(
+            f"MAIN PATH (tta8 {label}, {SERVE_TILES} tiles = {len(TTA_VIEWS_8) * chunks} chunks)",
+            {"plastic_head": HEAD_PER_CHUNK * 8 * chunks, "residual_tail": TAIL_PER_CHUNK * 8 * chunks,
+             "conv3x3": CONV_PER_CHUNK * 8 * chunks})
+    if torch.equal(outs["batched"], outs["sequential"]):
+        print("[12] tta8 batched views == sequential views, bit for bit", flush=True)
+    else:
+        # The chunks hold the same samples at the same places either way (SERVE_TILES is a multiple of B),
+        # so a difference is a layer that does not repeat its bits from run to run.
+        d = float((outs["batched"] - outs["sequential"]).abs().max())
+        culprit = first_unrepeatable_layer(model, X[:B])
+        with training_numerics():  # deterministic cuDNN, as the training step runs: each view's masks, unmerged
+            views = [TTA_TRANSFORMS[t][0](X, True).contiguous() for t in TTA_VIEWS_8]
+            seq_v = torch.stack([predict_masks(model, v, device=dev) for v in views])
+            bat_v = predict_masks(model, torch.cat(views), device=dev).reshape(seq_v.shape)
+            per_view = [float((a - b).abs().max()) for a, b in zip(seq_v, bat_v)]
+            merged = float((tta_merge(seq_v, TTA_VIEWS_8) - tta_merge(bat_v, TTA_VIEWS_8)).abs().max())
+            det_culprit = first_unrepeatable_layer(model, X[:B])
+        print(f"[12] tta8 batched views != sequential: max|diff| {d:.3g}; the first module whose output differs "
+              f"between two forwards of one chunk (of up to 5 pairs): {culprit} (ROADMAP C5); under "
+              f"deterministic cuDNN: each view's masks batched vs sequential max|diff| {per_view}, merged "
+              f"{merged:.3g}, first module differing between two forwards {det_culprit}", flush=True)
+        check(d <= 1e-6, f"tta8 batched vs sequential max|diff| {d:.3g} > 1e-6")
+    probs = outs["batched"]
+    check(tuple(probs.shape) == (SERVE_TILES, 101, 101) and bool(torch.isfinite(probs).all())
+          and float(probs.min()) >= 0.0 and float(probs.max()) <= 1.0, "tta8: bad probabilities")
+
+    card = predict_masks_tta(model, X[:PARITY_TILES], transforms=TTA_VIEWS_4, device=dev).cpu()
+    ref = predict_masks_tta(cpu_model, tiles[:PARITY_TILES], transforms=TTA_VIEWS_4, chunk=PARITY_TILES,
+                            device="cpu")
+    e = float((card - ref).abs().max())
+    check(bool(torch.allclose(card, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL)),
+          f"tta4 card vs CPU port max|diff| {e:.3g} beyond rtol={SERVE_RTOL}, atol={SERVE_ATOL}")
+    print(f"[12] tta4 on {PARITY_TILES} tiles, card vs CPU port: max|diff| {e:.3g} (rtol={SERVE_RTOL}, "
+          f"atol={SERVE_ATOL})", flush=True)
+
+    ident = predict_masks(model, X[:B], device=dev)
+    reset_counts()
+    singles = [inference(model, tiles[i], device=dev) for i in range(3)]
+    counts["inference_3"] = expect_launches("inference(), 3 single images (B=1 plans)",
+                                            {"plastic_head": 3, "residual_tail": 27, "conv3x3": 108})
+    e = max(float(np.abs(s_ - ident[i].cpu().numpy()).max()) for i, s_ in enumerate(singles))
+    check(all(np.allclose(s_, ident[i].cpu().numpy(), rtol=SERVE_RTOL, atol=SERVE_ATOL) for i, s_ in enumerate(singles)),
+          f"inference() vs the chunked path max|diff| {e:.3g}")
+    print(f"[12] inference() on 3 tiles (B=1) vs rows of the {B}-tile chunk: max|diff| {e:.3g}", flush=True)
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    for transposed, shapes in ((False, QCONV_SHAPES), (True, QCONVT_SHAPES)):
+        fn, plain = ((tq.qconvT3_s2_valid, tq.qconvT3_s2_valid_plain) if transposed
+                     else (tq.qconv3_same, tq.qconv3_same_plain))
+        for hw, cin, cout in shapes:
+            x = torch.randn((B, hw, hw, cin), device=dev, generator=g)
+            bound = 1.0 / (9 * (cout if transposed else cin)) ** 0.5
+            w = (torch.rand((cin, cout, 3, 3) if transposed else (cout, cin, 3, 3), device=dev, generator=g)
+                 * 2 - 1) * bound
+            b = torch.rand((cout,), device=dev, generator=g) * bound
+            amax = 0.8 * x.abs().amax()  # the top fifth saturates
+            got, want = fn(x, w, b, amax), plain(x, w, b, amax)
+            check(bool(torch.equal(got, want)), f"{fn.__name__} {hw}x{hw} {cin}->{cout} B={B}: not bit-exact "
+                  f"against the float64 plain version (max|diff| {float((got - want).abs().max()):.3g})")
+    print(f"[12] int8 convs on the card == their float64 plain versions, bit for bit: qconv3_same at "
+          f"{len(QCONV_SHAPES)} shapes, qconvT3_s2_valid at {len(QCONVT_SHAPES)}, B={B}", flush=True)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    qmodel = quantize_for_serving(model, X[:CALIB_TILES], device=dev)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib_chunks = CALIB_TILES // B
+    counts["calib"] = expect_launches(
+        f"calibration, {CALIB_TILES} tiles", {"plastic_head": HEAD_PER_CHUNK * calib_chunks,
+                                              "residual_tail": TAIL_PER_CHUNK * calib_chunks,
+                                              "conv3x3": CONV_PER_CHUNK * calib_chunks})
+    ranges = qmodel.quant_ranges()
+    check(len(ranges) == 49 and all(bool(torch.isfinite(r)) and float(r) >= 0 for r in ranges.values()),
+          f"calibration: {len(ranges)} ranges, want 49, finite and >= 0")
+    reset_counts()
+    q8 = predict_masks(qmodel, X, device=dev)
+    torch.cuda.synchronize()
+    counts["int8"] = expect_launches(f"int8 forward, {SERVE_TILES} tiles", {"plastic_head": HEAD_PER_CHUNK * chunks})
+    check(bool(torch.isfinite(q8).all()), "int8: non-finite probabilities")
+    cpu_q = copy.deepcopy(cpu_model)
+    cpu_q.quant = "int8"
+    cpu_q.load_quant_ranges({k: v.cpu() for k, v in ranges.items()})
+    ref8 = predict_masks(cpu_q, tiles[:PARITY_TILES], chunk=PARITY_TILES, device="cpu")
+    e8 = float((q8[:PARITY_TILES].cpu() - ref8).abs().max())
+    check(e8 <= INT8_ATOL, f"int8 card vs CPU port (the card's ranges) max|diff| {e8:.3g} > {INT8_ATOL}")
+    e_fp = float((q8[:B] - ident).abs().max())
+    print(f"[12] calibration on {CALIB_TILES} tiles: {len(ranges)} ranges in {calib_s:.3f} s; int8 on "
+          f"{PARITY_TILES} tiles, card vs CPU port with the card's ranges: max|diff| {e8:.3g} (atol {INT8_ATOL}); "
+          f"int8 vs fp32 on the card, {B} tiles: max|diff| {e_fp:.3g}", flush=True)
+
+    def rate(fn, n=SERVE_TILES, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        return n / float(np.median(secs))
+
+    rates = {
+        "identity fp32": rate(lambda: predict_masks_tta(model, tiles, device=dev)),
+        "tta4 batched": rate(lambda: predict_masks_tta(model, tiles, transforms=TTA_VIEWS_4, batch_views=True,
+                                                       device=dev)),
+        "tta8 batched": rate(lambda: predict_masks_tta(model, tiles, transforms=TTA_VIEWS_8, batch_views=True,
+                                                       device=dev)),
+        "tta8 sequential": rate(lambda: predict_masks_tta(model, tiles, transforms=TTA_VIEWS_8, device=dev)),
+        "identity int8": rate(lambda: predict_masks_tta(qmodel, tiles, device=dev)),
+    }
+    print(f"[12] serving tiles/s (NVIDIA card: {smi}), neurons=16, chunk {B}, {SERVE_TILES} tiles from the host, "
+          f"host clock, median of 3: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; calibration {CALIB_TILES} tiles {calib_s:.3f} s", flush=True)
+
+    predictor = MaskPredictor(model, tta=TTA_VIEWS_4, threshold=0.5, device=dev)
+    server = serve(predictor, "127.0.0.1", 0, block=False)
+    try:
+        host, port = server.server_address
+
+        def post(path, body):
+            req = urllib.request.Request(f"http://{host}:{port}{path}", data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.read()
+
+        buf = io.BytesIO()
+        np.save(buf, tiles[:B, :, :, 0], allow_pickle=False)
+        body = buf.getvalue()
+        reset_counts()
+        got = np.load(io.BytesIO(post("/predict", body)), allow_pickle=False)
+        counts["http_predict"] = expect_launches(f"HTTP /predict, {B} tiles, tta4", {
+            "plastic_head": HEAD_PER_CHUNK * 4, "residual_tail": TAIL_PER_CHUNK * 4, "conv3x3": CONV_PER_CHUNK * 4})
+        want = predictor.predict(tiles[:B, :, :, 0])
+        check(got.dtype == np.float32 and np.array_equal(got, want.astype(np.float32)),
+              "HTTP /predict differs from predictor.predict")
+        check(json.loads(post("/predict_rle", body)) == predictor.predict_rle(tiles[:B, :, :, 0]),
+              "HTTP /predict_rle differs from predictor.predict_rle")
+        with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        check(health["status"] == "ok" and torch.cuda.get_device_name(0) in health["device"],
+              f"/healthz: {health}")
+        lat = []
+        for _ in range(5):
+            t = time.perf_counter()
+            post("/predict", body)
+            lat.append(time.perf_counter() - t)
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"[12] HTTP on 127.0.0.1: /predict ({B} tiles, tta4, threshold 0.5) == predictor.predict, /predict_rle "
+          f"== predictor.predict_rle, /healthz {health}; /predict latency (NVIDIA card: {smi}) median "
+          f"{float(np.median(lat)) * 1e3:.1f} ms of 5 ({[round(t_ * 1e3, 1) for t_ in lat]} ms)", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_tgs_dir(os.path.join(tmp, "tgs"))
+        pth = os.path.join(tmp, "m.pth")
+        torch.save(seeded_model(SERVE_NEURONS, "oja", 0).state_dict(), pth)
+        out = os.path.join(tmp, "out")
+        on = [] if dev.type == "cuda" else ["--device", str(dev)]
+        path = cli_infer.main(["-m", pth, "-i", data, "-o", out, "--neurons", str(SERVE_NEURONS), "--prule", "oja", "--tta", "tta4",
+                               "--save", "--quant", "int8"] + on)
+        rows = [ln.split(",", 1) for ln in open(path).read().splitlines()[1:]]
+        check(sorted(i for i, _ in rows) == [f"t{j}" for j in range(7)], "cli.infer: submission.csv ids")
+        from PIL import Image
+
+        for idx, rle in rows:
+            png = np.asarray(Image.open(os.path.join(out, "masks", f"{idx}.png")))
+            check(png.shape == (101, 101, 3) and np.array_equal(png[..., 0] > 0, rle_decode(rle, (101, 101)) > 0),
+                  f"cli.infer: masks/{idx}.png does not decode to its RLE")
+    print(f"[12] cli.infer --tta tta4 --save --quant int8 on a fake TGS directory (30 train, 7 test tiles): "
+          f"submission.csv with {len(rows)} rows, {sum(1 for _, r in rows if r)} non-empty; 7 PNGs equal to their "
+          f"RLE masks", flush=True)
+    print(f"[12] phase 12 took {time.time() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def time_bare_epoch(dev):
     """Seconds of one TIMED_TRAIN-step epoch of make_epoch_fn alone (the CUDA graph step, the loss copies,
     no permutation, augmentation or driver), at cli.train's model, rate and dropout under TIMED_ARGS."""
@@ -1282,6 +1589,10 @@ def main() -> int:
     driver_counts = phase_driver(dev, smi, graph_step_s)
     for entry in kernels:  # launches of the driver's first run (phase 11)
         entry["launches_driver"] = driver_counts[entry["name"]]
+    serving_counts = phase_serving_features(dev, smi)
+    for entry in kernels:  # launches of phase 12's paths
+        for path in ("tta8_batched", "calib", "int8"):
+            entry[f"launches_{path}"] = serving_counts[path][entry["name"]]
     print(f"[done] {time.time() - t0:.1f}s; card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

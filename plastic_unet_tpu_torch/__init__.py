@@ -2,7 +2,9 @@
 
 The JAX package stays the reference; this package re-implements its serving
 path (UNetPRes forward with a zero trace, the best-threshold search on
-validation, masks, RLE strings and ``submission.csv``), its
+validation, masks, RLE strings and ``submission.csv``; the dihedral TTA
+views, the single-image inference, the PNG mask dump, the HTTP endpoint
+and int8 post-training quantization), its
 reference-parity training step (the B=1 lifetime loop with the detached
 trace, BCE, Adam and a per-sample StepLR; lanes for B>1) and the training
 entry point around it (the driver, checkpoints, data staging and the
@@ -27,8 +29,9 @@ Module paths mirror the JAX package, so each module has its counterpart:
     <-> their namesakes (the resume-state file replaces the Orbax state)
   - data.dataset, data.images, data.hdf5_io, ops.augment <-> their namesakes
     (no pandas or sklearn; PIL and h5py imported where used)
-  - eval.evaluate, ops.iou, ops.losses, ops.rle, submit.inference,
-    submit.server, data.synthetic, utils.torch_interop, utils.precision
+  - eval.evaluate, ops.iou, ops.losses, ops.rle, ops.quant, submit.inference,
+    submit.server, submit.quant, submit.http_server, data.synthetic,
+    utils.torch_interop, utils.precision
 
 Layout: images are NHWC ``(N, H, W, C)`` and masks ``(N, nbf, nbf)``, as in
 the JAX package; activations inside the model are contiguous NHWC tensors.
@@ -40,7 +43,7 @@ there is no silent fallback to the CPU.
 Tests on the CPU: ``python -m pytest tests/test_torch_*.py -q`` (port
 against JAX, the training trajectory included). On the card:
 ``python3 chip_smoke.py`` (phases 7-10 are the training step, phase 11
-the training entry point).
+the training entry point, phase 12 the serving features).
 """
 
 from __future__ import annotations

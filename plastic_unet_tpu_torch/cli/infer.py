@@ -1,13 +1,16 @@
 """Inference CLI (counterpart of plastic_unet_tpu.cli.infer; reference
 src/infer.py:181-213): best threshold on the validation split (or a fixed
-one), then the test tiles' masks as an RLE ``submission.csv``. The JAX
-parser's flags plus ``--device`` (default CUDA).
+one), then the test tiles' masks as an RLE ``submission.csv``, with TTA
+views (``--tta``), the PNG mask dump (``--save``) and int8 serving
+(``--quant int8``: calibrated on the first ``--quant-calib`` validation
+tiles; the threshold search and the test prediction then run on the int8
+model). The JAX parser's flags plus ``--device`` (default CUDA).
 
-    python -m plastic_unet_tpu_torch.cli.infer -m MODEL.pth -i TGS_DIR -o OUT [--device cpu]
+    python -m plastic_unet_tpu_torch.cli.infer -m MODEL.pth -i TGS_DIR -o OUT [--tta tta4] [--save] \
+        [--quant int8] [--device cpu]
 
-Not ported yet, and raising when asked for (ROADMAP.md, queue A item 4):
-TTA views other than the identity, ``--visualize``, ``--save`` (the PNG
-mask dump), ``--quant int8``, ``--devices`` > 1, ``--trunk-pad``.
+Not ported yet, and raising when asked for: ``--visualize`` (ROADMAP.md,
+queue A item 7), ``--devices`` > 1 (item 6), ``--trunk-pad`` (item 4).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for reference compatibility; the device is --device")
     p.add_argument("--visualize", "-v", action="store_true", default=False,
                    help="visualize the images as they are processed (not ported)")
-    p.add_argument("--save", "-s", action="store_true", default=False, help="save the output masks (not ported)")
+    p.add_argument("--save", "-s", action="store_true", default=False,
+                   help="save the output masks as OUT/masks/<id>.png")
     p.add_argument("--mask-threshold", "-t", dest="mask_threshold", type=float,
                    help="accepted for reference compatibility; like the reference, the threshold "
                         "actually used comes from the best-IoU validation search (infer.py:156-171). "
@@ -37,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prule", default="hebb")
     p.add_argument("--tta", default="identity",
                    help="TTA views: preset tta2/tta4/tta8 or a comma list of identity,hflip,vflip,rot90,rot180,"
-                        "rot270,transpose,anti_transpose (only identity is ported)")
+                        "rot270,transpose,anti_transpose. tta4 is the quality-safe preset for anisotropic "
+                        "(seismic-like) data (QUALITY.md TTA study)")
     p.add_argument("--fixed-threshold", dest="fixed_threshold", type=float, default=None,
                    help="skip the validation threshold search and use this value")
     p.add_argument("--precision", default="perf", help="perf|parity (the forward runs in true fp32 either way)")
@@ -45,7 +50,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted; the CUDA plastic head is the only path")
     p.add_argument("--trunk-pad", type=int, default=0, metavar="SIZE", help="not ported (0 = off)")
     p.add_argument("--devices", type=int, default=1, help="devices to shard inference over (only 1 is ported)")
-    p.add_argument("--quant", default="none", choices=["none", "int8"], help="int8 serving (not ported)")
+    p.add_argument("--quant", default="none", choices=["none", "int8"],
+                   help="int8 serving: calibrate activation ranges on validation images, then run the conv "
+                        "trunk as int8 convs with int32 accumulation; the threshold search runs on the "
+                        "quantized model (see submit/quant.py)")
     p.add_argument("--quant-calib", dest="quant_calib", type=int, default=256,
                    help="number of validation images used for int8 calibration")
     p.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
@@ -54,10 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    lacking = [flag for flag, on in (("--visualize", args.visualize), ("--save", args.save),
-                                     ("--quant int8", args.quant != "none"), ("--devices", args.devices > 1)) if on]
+    lacking = [flag for flag, on in (("--visualize (queue A item 7)", args.visualize),
+                                     ("--devices (queue A item 6)", args.devices > 1)) if on]
     if lacking:
-        raise ValueError(f"plastic_unet_tpu_torch.cli.infer does not have {lacking} yet (ROADMAP.md, queue A item 4)")
+        raise ValueError(f"plastic_unet_tpu_torch.cli.infer does not have {lacking} yet (ROADMAP.md)")
     os.makedirs(args.out_dir, exist_ok=True)
 
     from plastic_unet_tpu_torch.ops.augment import parse_tta
@@ -91,6 +99,15 @@ def main(argv=None):
                       trunk_pad=args.trunk_pad)
     with matmul_precision(args.precision):
         model = load_model(args.model, cfg, args.device)
+        if args.quant == "int8":
+            import numpy as np
+
+            from plastic_unet_tpu_torch.submit.quant import quantize_for_serving
+
+            xv_nhwc = np.transpose(np.asarray(x_valid, dtype=np.float32), (0, 2, 3, 1))
+            n_cal = max(1, min(args.quant_calib, len(xv_nhwc)))
+            print("Calibrating int8 serving on %d validation images" % n_cal)
+            model = quantize_for_serving(model, xv_nhwc[:n_cal], device=args.device)
         if args.fixed_threshold is not None:
             run_params = {
                 "out_dir": args.out_dir,
@@ -100,9 +117,10 @@ def main(argv=None):
                 "mask_threshold": args.fixed_threshold,
                 "subm_file": "submission.csv",
             }
-            return predict(model, ids, images, run_params, tta=tta, device=args.device)
+            return predict(model, ids, images, run_params, save_masks=args.save, tta=tta, device=args.device)
         return start_inference(model, ids, images, x_valid, y_valid, out_dir=args.out_dir, img_width=t_img_width,
-                               img_height=t_img_height, img_chan=t_img_chan, tta=tta, debug=True, device=args.device)
+                               img_height=t_img_height, img_chan=t_img_chan, save_masks=args.save, tta=tta,
+                               debug=True, device=args.device)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="bfloat16: not ported")
     p.add_argument("--tta", default="identity",
-                   help="TTA views for inference: preset tta2/tta4/tta8 or a comma list (only identity is ported)")
+                   help="TTA views for inference: preset tta2/tta4/tta8 or a comma list (see cli.infer)")
     p.add_argument("--debug", action="store_true", default=True)
     p.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
     return p

@@ -12,6 +12,14 @@ the 1x1 outconv, through a channels_last NCHW view of the NHWC tensor. The
 ops.residual_tail, forward and backward; the cuDNN layers, pool, pad, cat
 and dropout differentiate through autograd. Weights and biases take the torch-default init
 (U(-1/sqrt(fan_in), 1/sqrt(fan_in))) from an explicit generator.
+
+int8 serving (``quant``, the JAX blocks' QuantConv3 / QuantConvT3): the 49
+quantized convs (each level's entry conv, the four tail convs of each of
+the 9 trunks, the 4 ConvTransposes) carry a non-persistent ``amax`` buffer,
+None until calibrated and absent from the state_dict. ``quant="calib"``
+runs the ordinary forward (the tail on the conv3x3 kernel) and keeps the
+running max|input| of each; ``quant="int8"`` runs each of them through
+ops.quant (the tail as its four int8 convs with the ReLUs and relu-skips).
 """
 
 from __future__ import annotations
@@ -22,7 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from plastic_unet_tpu_torch.ops.residual_tail import residual_tail
+from plastic_unet_tpu_torch.ops.quant import qconv3_same, qconvT3_s2_valid
+from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_ranges
+
+QUANT_MODES = ("", "calib", "int8")
 
 
 def init_conv_(conv: nn.Module, generator: torch.Generator | None) -> None:
@@ -79,13 +90,41 @@ def channel_dropout(x: torch.Tensor, rate: float, training: bool,
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
+def quantizable(conv: nn.Module) -> nn.Module:
+    """``conv`` with the non-persistent ``amax`` buffer of the quant modes (None: not calibrated)."""
+    conv.register_buffer("amax", None, persistent=False)
+    return conv
+
+
+def _note_range(conv: nn.Module, m: torch.Tensor) -> None:
+    """calib: the running max of ``m`` (a max|input|) over the calibration chunks."""
+    conv.amax = m if conv.amax is None else torch.maximum(conv.amax, m)
+
+
+def _calibrated(conv: nn.Module) -> torch.Tensor:
+    if conv.amax is None:
+        raise RuntimeError("quant='int8' needs calibrated activation ranges: run "
+                           "submit.quant.quantize_for_serving (or load_quant_ranges) first")
+    return conv.amax
+
+
+def quant_conv_nhwc(conv: nn.Module, x: torch.Tensor, quant: str, int8_fn) -> torch.Tensor:
+    """:func:`conv_nhwc` of a quantizable conv in mode ``quant``; ``int8_fn``
+    is its ops.quant form (qconv3_same or qconvT3_s2_valid)."""
+    if quant == "int8":
+        return int8_fn(x, conv.weight, conv.bias, _calibrated(conv))
+    if quant == "calib":
+        _note_range(conv, x.abs().amax())
+    return conv_nhwc(conv, x)
+
+
 class ConvModule(nn.Module):
     """The parameters of a conv3x3 [+ReLU] (reference conv_module), under
     the reference's key ``conv``; ops.residual_tail does the math."""
 
     def __init__(self, features: int):
         super().__init__()
-        self.conv = nn.Conv2d(features, features, 3, padding=1)
+        self.conv = quantizable(nn.Conv2d(features, features, 3, padding=1))
 
 
 class ResidualBlock(nn.Module):
@@ -100,24 +139,48 @@ class ResidualBlock(nn.Module):
         # Index 0 is the (parameter-free) ReLU, kept so the keys are conv.1 / conv.2.
         self.conv = nn.ModuleList([nn.ReLU(), ConvModule(features), ConvModule(features)])
 
+    def convs(self) -> tuple:
+        return self.conv[1].conv, self.conv[2].conv
+
     def tail_params(self) -> tuple:
-        c1, c2 = self.conv[1].conv, self.conv[2].conv
+        c1, c2 = self.convs()
         return c1.weight, c1.bias, c2.weight, c2.bias
 
 
 def _trunk(in_features: int, features: int) -> nn.ModuleList:
     """Sequential(Conv2d, residual_block, residual_block, ReLU) of down/middle."""
     return nn.ModuleList([
-        nn.Conv2d(in_features, features, 3, padding=1),
+        quantizable(nn.Conv2d(in_features, features, 3, padding=1)),
         ResidualBlock(features),
         ResidualBlock(features),
         nn.ReLU(),
     ])
 
 
-def _trunk_forward(seq: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
-    x = conv_nhwc(seq[0], x)
-    return residual_tail(x, *seq[1].tail_params(), *seq[2].tail_params())
+def _int8_tail(convs, x0: torch.Tensor) -> torch.Tensor:
+    """The residual tail as four int8 convs (ops.quant), the ReLUs and the relu-skips."""
+    def q(conv, t):
+        return qconv3_same(t, conv.weight, conv.bias, _calibrated(conv))
+
+    c11, c12, c21, c22 = convs
+    h1 = torch.relu(x0)
+    x1 = q(c12, torch.relu(q(c11, h1))) + h1
+    h2 = torch.relu(x1)
+    return torch.relu(q(c22, torch.relu(q(c21, h2))) + h2)
+
+
+def _trunk_forward(seq: nn.ModuleList, x: torch.Tensor, quant: str = "") -> torch.Tensor:
+    x = quant_conv_nhwc(seq[0], x, quant, qconv3_same)
+    convs = seq[1].convs() + seq[2].convs()
+    if quant == "int8":
+        return _int8_tail(convs, x)
+    params = seq[1].tail_params() + seq[2].tail_params()
+    if quant == "calib":
+        out, ranges = residual_tail_ranges(x, *params)
+        for conv, m in zip(convs, ranges):
+            _note_range(conv, m)
+        return out
+    return residual_tail(x, *params)
 
 
 class DownRes(nn.Module):
@@ -127,8 +190,8 @@ class DownRes(nn.Module):
         super().__init__()
         self.dconv = _trunk(in_features, features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _trunk_forward(self.dconv, x)
+    def forward(self, x: torch.Tensor, quant: str = "") -> torch.Tensor:
+        return _trunk_forward(self.dconv, x, quant)
 
 
 class Middle(nn.Module):
@@ -138,8 +201,8 @@ class Middle(nn.Module):
         super().__init__()
         self.mconv = _trunk(in_features, features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _trunk_forward(self.mconv, x)
+    def forward(self, x: torch.Tensor, quant: str = "") -> torch.Tensor:
+        return _trunk_forward(self.mconv, x, quant)
 
 
 class UpRes(nn.Module):
@@ -149,15 +212,15 @@ class UpRes(nn.Module):
 
     def __init__(self, in_features: int, features: int, dropout_ratio: float):
         super().__init__()
-        self.dconv = nn.ConvTranspose2d(in_features, features, 3, stride=2)
+        self.dconv = quantizable(nn.ConvTranspose2d(in_features, features, 3, stride=2))
         # Index 0 is the Dropout2d of the reference's Sequential (no parameters).
         self.uconv = nn.ModuleList([nn.Dropout2d(dropout_ratio), Middle(in_features, features)])
         self.dropout_ratio = dropout_ratio
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        x = conv_nhwc(self.dconv, x)
+                generator: torch.Generator | None = None, quant: str = "") -> torch.Tensor:
+        x = quant_conv_nhwc(self.dconv, x, quant, qconvT3_s2_valid)
         x = pad_to_match(x, skip.shape[1], skip.shape[2])
         x = torch.cat([x, skip], dim=-1)
         x = channel_dropout(x, self.dropout_ratio, self.training, generator)
-        return self.uconv[1](x)
+        return self.uconv[1](x, quant)

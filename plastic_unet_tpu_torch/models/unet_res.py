@@ -8,18 +8,25 @@ is 101 -> 50 -> 25 -> 12 -> 6 -> (up) -> 101; the first pool drops at half
 the rate. Inputs are NHWC ``(B, H, W, C)`` and the trace is ``(B, nbf, nbf)``,
 one independent stream per batch element.
 
-Not ported yet (see ROADMAP.md): fold_hires, quant, trunk_pad, coord_conv,
+``quant`` is the int8 serving mode of the JAX module ('' off, 'calib'
+records each quantized conv's range, 'int8' serves from them; see
+models.blocks and submit.quant). The ranges live in non-persistent buffers
+(:meth:`UNetPRes.quant_ranges`), so a reference ``.pth`` loads strictly
+either way; the 1x1 outconv and the head stay fp32.
+
+Not ported yet (see ROADMAP.md): fold_hires, trunk_pad, coord_conv,
 remat_trunk, patch_conv, fast_dw, compute_dtype, batch_norm.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Mapping, NamedTuple
 
 import torch
 from torch import nn
 
 from plastic_unet_tpu_torch.models.blocks import (
+    QUANT_MODES,
     DownRes,
     Middle,
     UpRes,
@@ -56,11 +63,12 @@ class UNetPRes(nn.Module):
 
     def __init__(self, n_channels: int = 1, n_classes: int = 1, neurons: int = 16,
                  dropout_ratio: float = 0.5, alfa_type: str = "free", rule: str = "hebb",
-                 nbf: int = 128, plastic: bool = True, generator: torch.Generator | None = None):
+                 nbf: int = 128, plastic: bool = True, quant: str = "",
+                 generator: torch.Generator | None = None):
         super().__init__()
         check_head_args(rule, alfa_type)
         n = neurons
-        self.nbf, self.rule, self.alfa_type, self.plastic = nbf, rule, alfa_type, plastic
+        self.nbf, self.rule, self.alfa_type, self.plastic, self.quant = nbf, rule, alfa_type, plastic, quant
         self.dropout_ratio = dropout_ratio
         if plastic:
             self.w = nn.Parameter(torch.empty(nbf, nbf))
@@ -88,6 +96,22 @@ class UNetPRes(nn.Module):
                 self.alpha.copy_(0.01 * torch.rand(self.alpha.shape, generator=generator))
                 self.eta.fill_(0.01)
 
+    def quant_ranges(self) -> dict:
+        """torch module prefix (``conv1.dconv.0``, ``uconv4.dconv``, ...) ->
+        calibrated amax, for each quantized conv that has one."""
+        return {name[: -len(".amax")]: b for name, b in self.named_buffers() if name.endswith(".amax")}
+
+    def load_quant_ranges(self, ranges: Mapping) -> None:
+        """Set every quantized conv's amax from ``ranges`` (prefix -> scalar),
+        on the conv's device; the prefixes must be exactly the 49 convs'."""
+        convs = {name: m for name, m in self.named_modules() if "amax" in m._buffers}
+        if set(ranges) != set(convs):
+            raise KeyError(f"quant ranges: missing {sorted(set(convs) - set(ranges))}, "
+                           f"unknown {sorted(set(ranges) - set(convs))}")
+        for name, v in ranges.items():
+            conv = convs[name]
+            conv.amax = torch.as_tensor(v, dtype=torch.float32).to(conv.weight.device).reshape(())
+
     def initial_zero_hebb(self, batch: int = 1, device=None) -> torch.Tensor:
         """Batched zero trace (reference initialZeroHebb)."""
         return torch.zeros((batch, self.nbf, self.nbf), device=device)
@@ -100,21 +124,23 @@ class UNetPRes(nn.Module):
         if x.dim() == 3:  # unbatched convenience input
             x = x[None]
             hebb = hebb[None] if hebb.dim() == 2 else hebb
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"quant must be '', 'calib' or 'int8', got {self.quant!r}")
         x = x.contiguous()
-        tr, r, g = self.training, self.dropout_ratio, generator
-        xc1 = self.conv1(x)
+        tr, r, g, q = self.training, self.dropout_ratio, generator, self.quant
+        xc1 = self.conv1(x, q)
         x1 = channel_dropout(max_pool_2x2(xc1), r / 2, tr, g)
-        xc2 = self.conv2(x1)
+        xc2 = self.conv2(x1, q)
         x2 = channel_dropout(max_pool_2x2(xc2), r, tr, g)
-        xc3 = self.conv3(x2)
+        xc3 = self.conv3(x2, q)
         x3 = channel_dropout(max_pool_2x2(xc3), r, tr, g)
-        xc4 = self.conv4(x3)
+        xc4 = self.conv4(x3, q)
         x4 = channel_dropout(max_pool_2x2(xc4), r, tr, g)
-        x5 = self.mid(x4)
-        u = self.uconv4(x5, xc4, g)
-        u = self.uconv3(u, xc3, g)
-        u = self.uconv2(u, xc2, g)
-        u = self.uconv1(u, xc1, g)
+        x5 = self.mid(x4, q)
+        u = self.uconv4(x5, xc4, g, q)
+        u = self.uconv3(u, xc3, g, q)
+        u = self.uconv2(u, xc2, g, q)
+        u = self.uconv1(u, xc1, g, q)
         out = conv_nhwc(self.outc.conv, u)  # (B, H, W, n_classes)
 
         b = out.shape[0]

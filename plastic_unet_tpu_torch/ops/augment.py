@@ -1,4 +1,4 @@
-"""Device-side augmentation and the TTA view names (counterpart of
+"""Device-side augmentation and the dihedral TTA views (counterpart of
 plastic_unet_tpu.ops.augment).
 
 Random train-time augmentation applies an h-flip, then a v-flip, then a
@@ -10,12 +10,17 @@ k in 0..3) that :func:`draw_augment_choices` draws on the device, or a
 caller derives from JAX's keys to hold the two packages against each other.
 The selection runs on the device with ``torch.where``: nothing is read back.
 
-TTA inference is not ported yet (``submit.inference.predict_masks_tta``
-raises for any view but the identity); :func:`parse_tta` is, so that the
-CLIs take ``--tta`` as the JAX ones do.
+Test-time augmentation: :data:`TTA_TRANSFORMS` maps each of the 8 views of
+the dihedral group D4 to its forward on the image and its inverse on the
+mask; :func:`tta_expand`, :func:`tta_merge` and :func:`tta_batched_apply`
+stack, undo and average them. ``torch.flip``, ``torch.rot90`` and
+``transpose`` return copies or strided views: whatever feeds a kernel
+wrapper (contiguous NHWC) is made contiguous first.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -36,16 +41,40 @@ def rot90k(x: torch.Tensor, k: int, channels_last: bool = True) -> torch.Tensor:
     return torch.rot90(x, k, dims=_spatial_axes(x, channels_last))
 
 
-# The view names of the JAX package's TTA registry (the dihedral group D4) and its presets.
-TTA_VIEW_NAMES = ("identity", "hflip", "vflip", "rot90", "rot180", "rot270", "transpose", "anti_transpose")
+def transpose_hw(x: torch.Tensor, channels_last: bool = True) -> torch.Tensor:
+    """Reflection over the main diagonal: out[i, j] = in[j, i] (square
+    tiles). Self-inverse."""
+    return torch.transpose(x, *_spatial_axes(x, channels_last))
+
+
+def anti_transpose_hw(x: torch.Tensor, channels_last: bool = True) -> torch.Tensor:
+    """Reflection over the anti-diagonal: out[i, j] = in[n-1-j, n-1-i].
+    Self-inverse (rot180 of the transpose)."""
+    return rot90k(transpose_hw(x, channels_last), 2, channels_last)
+
+
+# name -> (forward on the image, inverse on the mask): the dihedral group D4,
+# 4 rotations and 4 reflections, in the JAX registry's order. The rotations'
+# inverses turn the other way; the reflections are their own. The transposes
+# swap H and W, so they keep the shape only on square tiles (TGS: 101x101).
+TTA_TRANSFORMS = {
+    "identity": (lambda x, cl=True: x, lambda m, cl=True: m),
+    "hflip": (flip_h, flip_h),
+    "vflip": (flip_v, flip_v),
+    "rot90": (lambda x, cl=True: rot90k(x, 1, cl), lambda m, cl=True: rot90k(m, 3, cl)),
+    "rot180": (lambda x, cl=True: rot90k(x, 2, cl), lambda m, cl=True: rot90k(m, 2, cl)),
+    "rot270": (lambda x, cl=True: rot90k(x, 3, cl), lambda m, cl=True: rot90k(m, 1, cl)),
+    "transpose": (transpose_hw, transpose_hw),
+    "anti_transpose": (anti_transpose_hw, anti_transpose_hw),
+}
 TTA_VIEWS_2 = ("identity", "hflip")
 TTA_VIEWS_4 = ("identity", "hflip", "vflip", "rot180")
-TTA_VIEWS_8 = TTA_VIEW_NAMES
+TTA_VIEWS_8 = tuple(TTA_TRANSFORMS)
 
 
 def parse_tta(spec: str) -> tuple[str, ...]:
     """Parse a --tta CLI spec: a preset ('tta2'/'tta4'/'tta8'/'all') or a
-    comma-separated list of view names from TTA_VIEW_NAMES."""
+    comma-separated list of view names from TTA_TRANSFORMS."""
     presets = {"tta2": TTA_VIEWS_2, "tta4": TTA_VIEWS_4, "tta8": TTA_VIEWS_8, "all": TTA_VIEWS_8}
     s = spec.strip().lower()
     if s in presets:
@@ -53,12 +82,39 @@ def parse_tta(spec: str) -> tuple[str, ...]:
     views = tuple(v.strip() for v in s.split(",") if v.strip())
     if not views:
         raise ValueError(
-            f"empty TTA spec {spec!r}; valid: {sorted(TTA_VIEW_NAMES)} or presets {sorted(presets)}"
+            f"empty TTA spec {spec!r}; valid: {sorted(TTA_TRANSFORMS)} or presets {sorted(presets)}"
         )
-    unknown = [v for v in views if v not in TTA_VIEW_NAMES]
+    unknown = [v for v in views if v not in TTA_TRANSFORMS]
     if unknown:
-        raise ValueError(f"unknown TTA view(s) {unknown}; valid: {sorted(TTA_VIEW_NAMES)} or presets {sorted(presets)}")
+        raise ValueError(f"unknown TTA view(s) {unknown}; valid: {sorted(TTA_TRANSFORMS)} or presets {sorted(presets)}")
     return views
+
+
+def tta_expand(x: torch.Tensor, transforms: Sequence[str] = ("identity", "hflip"),
+               channels_last: bool = True) -> torch.Tensor:
+    """The views stacked: (B, ...) -> (T, B, ...)."""
+    return torch.stack([TTA_TRANSFORMS[t][0](x, channels_last) for t in transforms], dim=0)
+
+
+def tta_merge(preds: torch.Tensor, transforms: Sequence[str] = ("identity", "hflip"),
+              channels_last: bool = False) -> torch.Tensor:
+    """Each view's geometry undone, then the mean: (T, B, H, W) -> (B, H, W).
+    channels_last=False because the head's masks are (B, nbf, nbf)."""
+    undone = [TTA_TRANSFORMS[t][1](preds[i], channels_last) for i, t in enumerate(transforms)]
+    return torch.mean(torch.stack(undone, dim=0), dim=0)
+
+
+def tta_batched_apply(forward, x: torch.Tensor, transforms: Sequence[str]) -> torch.Tensor:
+    """The T views folded into the batch axis of one forward, then merged.
+
+    forward: (T*B, H, W, C) NHWC -> (T*B, nbf, nbf) masks. Equal to T
+    passes, one a view, wherever the forward's per-sample math does not
+    depend on a sample's place in the batch (eval mode: no dropout, no
+    reduction across the batch, and kernel plans chosen from shapes)."""
+    n = x.shape[0]
+    allv = torch.cat([TTA_TRANSFORMS[t][0](x, True) for t in transforms], dim=0)
+    preds = forward(allv)
+    return tta_merge(preds.reshape((len(transforms), n) + tuple(preds.shape[1:])), transforms, channels_last=False)
 
 
 def draw_augment_choices(n: int, generator: torch.Generator) -> torch.Tensor:

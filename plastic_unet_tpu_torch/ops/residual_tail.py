@@ -119,16 +119,23 @@ def residual_tail_backward(g, x0, pre11, x1, pre21, out, k11, k12, k21, k22):
     return res
 
 
+def _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22):
+    """(out, (x0, pre11, x1, pre21), the (3, 3, C, C) weights): the four
+    conv3x3 launches, or their plain versions for CPU tensors."""
+    x0 = x0.contiguous()
+    ks = [hwio(w) for w in (w11, w12, w21, w22)]
+    bs = [b.contiguous() for b in (b11, b12, b21, b22)]
+    out, pre11, x1, pre21 = _forward(x0, ks[0], bs[0], ks[1], bs[1], ks[2], bs[2], ks[3], bs[3], conv3x3)
+    if x0.device.type == "cuda":
+        residual_tail.launches += 1
+    return out, (x0, pre11, x1, pre21), ks
+
+
 class _ResidualTail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x0, w11, b11, w12, b12, w21, b21, w22, b22):
-        x0 = x0.contiguous()
-        ks = [hwio(w) for w in (w11, w12, w21, w22)]
-        bs = [b.contiguous() for b in (b11, b12, b21, b22)]
-        out, pre11, x1, pre21 = _forward(x0, ks[0], bs[0], ks[1], bs[1], ks[2], bs[2], ks[3], bs[3], conv3x3)
-        if x0.device.type == "cuda":
-            residual_tail.launches += 1
-        ctx.save_for_backward(x0, pre11, x1, pre21, out, *ks)
+        out, kept, ks = _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22)
+        ctx.save_for_backward(*kept, out, *ks)
         return out
 
     @staticmethod
@@ -141,6 +148,15 @@ def residual_tail(x0, w11, b11, w12, b12, w21, b21, w22, b22):
     inputs take the four conv3x3 launches (and, in the backward, the dgrad
     and wgrad launches) or raise; CPU inputs the plain versions of each."""
     return _ResidualTail.apply(x0, w11, b11, w12, b12, w21, b21, w22, b22)
+
+
+def residual_tail_ranges(x0, w11, b11, w12, b12, w21, b21, w22, b22):
+    """(out, ranges): :func:`residual_tail`'s forward, outside autograd, and
+    the largest value each of its four convs reads, max of relu(x0),
+    relu(pre11), relu(x1) and relu(pre21) as a (4,) tensor: the int8
+    calibration's ranges, read from the same four launches."""
+    out, kept, _ = _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22)
+    return out, torch.stack([t.amax() for t in kept]).clamp_min(0.0)
 
 
 residual_tail.launches = 0

@@ -1,15 +1,20 @@
 """Inference and the Kaggle submission (counterpart of
 plastic_unet_tpu.submit.inference; reference infer.py).
 
-  * :func:`predict`: chunked zero-trace masks for the test tiles,
-    binarized at ``pred > threshold`` (float64-exact, see
-    :func:`threshold_as_f32`), RLE-encoded, written as ``submission.csv``
-    (``id,rle_mask``), with the bytes the JAX package's pandas writer gives.
+  * :func:`inference`: one image (HW, HWC or CHW) to one mask, zero trace.
+  * :func:`predict_masks_tta`: chunked zero-trace masks averaged over the
+    dihedral TTA views (ops.augment), one full pass a view or, with
+    ``batch_views``, the views folded into the batch of one pass.
+  * :func:`predict`: the test tiles' masks, binarized at
+    ``pred > threshold`` (float64-exact, see :func:`threshold_as_f32`),
+    RLE-encoded, written as ``submission.csv`` (``id,rle_mask``) with the
+    bytes the JAX package's pandas writer gives; optionally each mask as
+    ``out_dir/masks/<id>.png``.
   * :func:`start_inference`: best-threshold search on validation, then
     :func:`predict`.
 
-Test-time augmentation other than the identity view, the PNG mask dump and
-the visual spot checks are not ported yet (ROADMAP.md).
+The visual spot checks (``visualize``) are not ported yet (ROADMAP.md,
+queue A item 7).
 """
 
 from __future__ import annotations
@@ -21,20 +26,43 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from plastic_unet_tpu_torch.eval.evaluate import predict_masks, score_model_best_iou
+from plastic_unet_tpu_torch import resolve_device
+from plastic_unet_tpu_torch.data.images import save_mask_png
+from plastic_unet_tpu_torch.eval.evaluate import _as_tensor, predict_masks, score_model_best_iou
+from plastic_unet_tpu_torch.ops.augment import TTA_TRANSFORMS, tta_batched_apply, tta_merge
 from plastic_unet_tpu_torch.ops.rle import encode_batch
 
 
+def inference(model, img_data, *, device=None) -> np.ndarray:
+    """The mask (nbf, nbf) of one image, HW, HWC or CHW (a leading axis of 1
+    or 3 read as channels unless the last axis is 1 or 3), zero trace."""
+    img = np.asarray(img_data, dtype=np.float32)
+    if img.ndim == 2:
+        img = img[..., None]
+    elif img.ndim == 3 and img.shape[0] in (1, 3) and img.shape[-1] not in (1, 3):
+        img = np.transpose(img, (1, 2, 0))
+    return predict_masks(model, img[None], chunk=1, device=device)[0].cpu().numpy()
+
+
 def predict_masks_tta(model, X, *, transforms: Sequence[str] = ("identity",), chunk: int = 128,
-                      device=None) -> torch.Tensor:
-    """Chunked zero-trace prediction merged over TTA views; only the
-    identity view is ported so far."""
-    if tuple(transforms) != ("identity",):
-        raise NotImplementedError(
-            f"TTA views {tuple(transforms)} are not ported yet; only ('identity',) is "
-            "(see ROADMAP.md, serving features left out of the first slice)"
-        )
-    return predict_masks(model, X, chunk=chunk, device=device)
+                      batch_views: bool = False, device=None) -> torch.Tensor:
+    """Chunked zero-trace masks ``(N, nbf, nbf)`` of NHWC images ``X``,
+    averaged over the TTA views ``transforms`` after each view's inverse.
+    One full chunked pass a view, or with ``batch_views`` the T views folded
+    into the batch of one pass of T*N samples. Eval-mode math does not
+    depend on a sample's place in its chunk, so both give the same masks
+    wherever every layer repeats its bits (on the card cuDNN's
+    ConvTranspose may not: ROADMAP.md, C5). Each view is made contiguous
+    before the forward."""
+    if tuple(transforms) == ("identity",):
+        return predict_masks(model, X, chunk=chunk, device=device)
+    dev = resolve_device(device)
+    X = _as_tensor(X, dev)
+    if batch_views:
+        return tta_batched_apply(lambda allv: predict_masks(model, allv, chunk=chunk, device=dev), X, transforms)
+    views = [predict_masks(model, TTA_TRANSFORMS[t][0](X, True).contiguous(), chunk=chunk, device=dev)
+             for t in transforms]
+    return tta_merge(torch.stack(views, dim=0), transforms, channels_last=False)
 
 
 def threshold_as_f32(t: float) -> np.float32:
@@ -63,14 +91,18 @@ def write_submission(path: str, ids: Sequence, rles: Sequence[str]) -> None:
             w.writerow([i, r])
 
 
-def predict(model, ids: Sequence, images, run_params: dict, *, tta: Sequence[str] = ("identity",), chunk: int = 128,
-            device=None) -> str:
+def predict(model, ids: Sequence, images, run_params: dict, *, visualize: bool = False, save_masks: bool = False,
+            tta: Sequence[str] = ("identity",), chunk: int = 128, device=None) -> str:
     """Predict all test masks and write the RLE submission CSV.
 
     ids: the tile ids, in the order of ``images``; images: the test tiles,
     reshaped to (N, img_height, img_width, img_chan). run_params carries the
     geometry, ``mask_threshold``, ``out_dir`` and ``subm_file``; ``tta``
-    the views (only the identity is ported). Returns the CSV's path."""
+    the views; ``save_masks`` also writes each binarized mask as
+    ``out_dir/masks/<id>.png``. Returns the CSV's path."""
+    if visualize:
+        raise NotImplementedError("predict(visualize=True) needs viz/plots.py and matplotlib, which the port "
+                                  "does not have yet (ROADMAP.md, queue A item 7)")
     X = np.asarray(images, dtype=np.float32).reshape(
         -1, run_params["img_height"], run_params["img_width"], run_params["img_chan"]
     )
@@ -78,14 +110,20 @@ def predict(model, ids: Sequence, images, run_params: dict, *, tta: Sequence[str
         raise ValueError(f"{len(ids)} ids for {X.shape[0]} images")
     preds = predict_masks_tta(model, X, transforms=tta, chunk=chunk, device=device)
     masks = binarize(preds, run_params["mask_threshold"])
+    if save_masks:
+        mask_dir = os.path.join(run_params["out_dir"], "masks")
+        os.makedirs(mask_dir, exist_ok=True)
+        for idx, m in zip(ids, masks):
+            save_mask_png(os.path.join(mask_dir, f"{idx}.png"), m.astype(bool))
     subm_file = os.path.join(run_params["out_dir"], run_params["subm_file"])
     write_submission(subm_file, ids, encode_batch(masks))
     return subm_file
 
 
 def start_inference(model, ids: Sequence, images, X_valid, y_valid, out_dir: str, img_width: int,
-                    img_height: int, img_chan: int, subm_file: str = "submission.csv", *,
-                    tta: Sequence[str] = ("identity",), chunk: int = 128, device=None, debug: bool = False) -> str:
+                    img_height: int, img_chan: int, subm_file: str = "submission.csv", *, visualize: bool = False,
+                    save_masks: bool = False, tta: Sequence[str] = ("identity",), chunk: int = 128, device=None,
+                    debug: bool = False) -> str:
     """Best-threshold search on validation, then the test prediction.
     X_valid arrives NCHW (the reference data contract) and is transposed
     to NHWC here."""
@@ -102,4 +140,5 @@ def start_inference(model, ids: Sequence, images, X_valid, y_valid, out_dir: str
         "subm_file": subm_file,
     }
     os.makedirs(out_dir, exist_ok=True)
-    return predict(model, ids, images, run_params, tta=tta, chunk=chunk, device=device)
+    return predict(model, ids, images, run_params, visualize=visualize, save_masks=save_masks, tta=tta, chunk=chunk,
+                   device=device)

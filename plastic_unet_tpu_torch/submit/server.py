@@ -1,7 +1,10 @@
 """Serving API (counterpart of plastic_unet_tpu.submit.server): a warm
-predictor that loads UNetPRes weights once and answers numpy batches."""
+predictor that loads UNetPRes weights once and answers numpy batches,
+optionally averaged over TTA views (one pass a view, as the JAX predictor)."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -17,18 +20,25 @@ class MaskPredictor:
     """Batched mask predictor for UNetPRes. ``device=None`` means CUDA;
     it raises on a host without CUDA unless ``device="cpu"`` is passed."""
 
-    def __init__(self, model: torch.nn.Module, *, chunk: int = 128, threshold: float | None = None,
-                 device=None):
+    def __init__(self, model: torch.nn.Module, *, chunk: int = 128, tta: Sequence[str] = ("identity",),
+                 threshold: float | None = None, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.chunk = chunk
+        self.tta = tuple(tta)
         self.threshold = threshold
 
     @classmethod
-    def from_pth(cls, path: str, *, nbf: int = 101, neurons: int = 16, rule: str = "hebb",
-                 key: str | None = None, device=None, **kw) -> "MaskPredictor":
+    def from_pth(cls, path: str, *, arch: str = "unet_res", nbf: int = 101, neurons: int = 16, rule: str = "hebb",
+                 compute_dtype=None, key: str | None = None, device=None, **kw) -> "MaskPredictor":
         """Load a reference-format UNetPRes ``.pth``; ``key`` picks the
-        state_dict inside a training checkpoint (e.g. ``"model"``)."""
+        state_dict inside a training checkpoint (e.g. ``"model"``). fp32
+        only: ``arch="unet"`` and another ``compute_dtype`` raise."""
+        if arch != "unet_res":
+            raise ValueError(f"arch={arch!r}: the port has UNetPRes only (ROADMAP.md, queue A item 5)")
+        if compute_dtype not in (None, torch.float32, "float32"):
+            raise ValueError(f"compute_dtype={compute_dtype!r}: the port serves fp32 only "
+                             "(ROADMAP.md, queue A item 4)")
         dev = resolve_device(device)
         model = UNetPRes(n_channels=1, n_classes=1, nbf=nbf, neurons=neurons, rule=rule)
         model.load_state_dict(load_pth(path, key), strict=True)
@@ -40,11 +50,12 @@ class MaskPredictor:
         return self
 
     def predict_probs(self, images: np.ndarray) -> torch.Tensor:
-        """(N, H, W) or (N, H, W, 1) float -> (N, nbf, nbf) sigmoid masks on the device."""
+        """(N, H, W) or (N, H, W, 1) float -> (N, nbf, nbf) sigmoid masks on
+        the device, averaged over the predictor's TTA views."""
         x = np.asarray(images, np.float32)
         if x.ndim == 3:
             x = x[..., None]
-        return predict_masks_tta(self.model, x, chunk=self.chunk, device=self.device)
+        return predict_masks_tta(self.model, x, transforms=self.tta, chunk=self.chunk, device=self.device)
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         """Sigmoid masks as numpy, or boolean masks if a threshold is set."""

@@ -11,6 +11,8 @@ undoes the HWIO layout of its conv kernels:
   ConvTranspose2d torch (I,O,kh,kw)  <- flax (kh,kw,O,I)  (transpose_kernel=True)
 
 Both are the flax kernel transposed by the inverse of ``(2, 3, 1, 0)``.
+The JAX int8 serving mode's ``quant`` collection (one ``amax`` beside each
+quantized conv's kernel) reaches the port through :func:`quant_ranges_from_jax`.
 """
 
 from __future__ import annotations
@@ -84,6 +86,28 @@ def state_dict_from_jax_params(params: Mapping, name_map: dict | None = None) ->
         if perm is not None:
             arr = np.transpose(arr, np.argsort(perm))
         out[torch_key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
+    return out
+
+
+def quant_ranges_from_jax(quant: Mapping, name_map: dict | None = None) -> dict:
+    """The port's int8 ranges (``UNetPRes.load_quant_ranges``: torch module
+    prefix -> 0-d float32 tensor) from the JAX ``variables["quant"]`` tree,
+    whose ``amax`` sits at the path of each quantized conv's kernel. Names
+    come from ``name_map`` (default :func:`unetp_res_name_map`); convs the
+    tree has no range for (the 1x1 outconv) are skipped."""
+    name_map = unetp_res_name_map() if name_map is None else name_map
+    out = {}
+    for flax_path, (torch_key, _) in name_map.items():
+        if flax_path[-1] != "kernel":
+            continue
+        node = quant
+        try:
+            for p in flax_path[:-1] + ("amax",):
+                node = node[p]
+        except KeyError:
+            continue
+        out[torch_key[: -len(".weight")]] = torch.tensor(float(np.asarray(node, dtype=np.float32)),
+                                                         dtype=torch.float32)
     return out
 
 

@@ -82,7 +82,7 @@ def test_draw_augment_choices():
                                   "transpose,anti_transpose"])
 def test_parse_tta_matches_jax(spec):
     assert taug.parse_tta(spec) == jaug.parse_tta(spec)
-    assert taug.TTA_VIEW_NAMES == tuple(jaug.TTA_TRANSFORMS)
+    assert tuple(taug.TTA_TRANSFORMS) == tuple(jaug.TTA_TRANSFORMS)
 
 
 @pytest.mark.parametrize("spec", ["", " , ", "identity,flip", "tta3"])

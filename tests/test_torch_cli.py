@@ -122,10 +122,28 @@ def test_cli_train_unported_flags_raise(tmp_path, flags):
 def test_cli_infer_unported_flags_raise(trained, tgs_dir, tmp_path):
     pth = str(trained[0] / "train_net.pth")
     base = ["-m", pth, "-i", tgs_dir, "-o", str(tmp_path), "--neurons", "2", "--device", "cpu"]
-    for flags in (["--save"], ["--visualize"], ["--quant", "int8"], ["--devices", "2"]):
+    for flags in (["--visualize"], ["--devices", "2"], ["--trunk-pad", "128"]):
         with pytest.raises(ValueError, match="does not have"):
             tinfer.main(base + flags)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tinfer.main(base + ["--tta", "tta2", "--fixed-threshold", "0.5"])
     with pytest.raises(ValueError, match="unknown TTA"):
         tinfer.main(base + ["--tta", "flip"])
+
+
+def test_cli_infer_tta_save_int8(trained, tgs_dir, tmp_path):
+    """--tta tta4 --save --quant int8 writes submission.csv and one PNG per
+    test id that decodes to that id's RLE; --quant-calib 4 calibrates on the
+    first 4 validation tiles; the threshold search runs on the int8 model."""
+    from PIL import Image
+
+    from plastic_unet_tpu_torch.ops.rle import rle_decode
+
+    pth = str(trained[0] / "train_net.pth")
+    out = tmp_path / "out"
+    path = tinfer.main(["-m", pth, "-i", tgs_dir, "-o", str(out), "--neurons", "2", "--tta", "tta4", "--save",
+                        "--quant", "int8", "--quant-calib", "4", "--device", "cpu"])
+    rows = [ln.split(",", 1) for ln in open(path).read().splitlines()[1:]]
+    assert sorted(i for i, _ in rows) == [f"t{j}" for j in range(7)]
+    for idx, rle in rows:
+        png = np.asarray(Image.open(out / "masks" / f"{idx}.png"))
+        assert png.shape == (101, 101, 3)
+        np.testing.assert_array_equal(png[..., 0] > 0, rle_decode(rle, (101, 101)).astype(bool))

@@ -130,20 +130,25 @@ def test_eval_net_matches_jax():
 
 
 def test_start_inference_takes_tta(tmp_path):
-    """predict and start_inference take the views; the identity is the
-    default path, any other view raises until TTA is ported."""
+    """predict and start_inference take the views: the identity is the
+    default path, and other views write the masks of predict_masks_tta at
+    the searched (or given) threshold."""
     tm = UNetPRes(neurons=2, nbf=16, generator=torch.Generator().manual_seed(2))
     xt, xv, _, yv = synthetic_split(3, 4, size=16, seed=5)
     ids, imgs = ["a", "b", "c"], xt[:, 0]
     args = (tm, ids, imgs, xv, yv, str(tmp_path), 16, 16, 1)
     plain = open(tinf.start_inference(*args, device="cpu")).read()
     assert open(tinf.start_inference(*args, tta=("identity",), device="cpu")).read() == plain
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinf.start_inference(*args, tta=("identity", "hflip"), device="cpu")
+    views = ("identity", "hflip")
+    rows = open(tinf.start_inference(*args, tta=views, device="cpu")).read().splitlines()
+    thr, _ = teval.score_model_best_iou(tm, np.transpose(xv, (0, 2, 3, 1)), yv, device="cpu")
+    want = tinf.binarize(tinf.predict_masks_tta(tm, imgs[..., None], transforms=views, device="cpu"), thr)
+    assert rows == ["id,rle_mask"] + [f"{i},{r}" for i, r in zip(ids, encode_batch(want))]
     rp = {"out_dir": str(tmp_path), "img_height": 16, "img_width": 16, "img_chan": 1, "mask_threshold": 0.5,
           "subm_file": "s.csv"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinf.predict(tm, ids, imgs, rp, tta=("vflip",), device="cpu")
+    rows = open(tinf.predict(tm, ids, imgs, rp, tta=("vflip",), device="cpu")).read().splitlines()
+    flipped = teval.predict_masks(tm, imgs[:, ::-1, :, None].copy(), device="cpu").flip(1)
+    assert rows[1:] == [f"{i},{r}" for i, r in zip(ids, encode_batch(tinf.binarize(flipped, 0.5)))]
 
 
 @pytest.mark.parametrize("hard", [False, True])
@@ -197,13 +202,6 @@ def test_predict_rle_threshold_contract_matches_jax(own_threshold):
     assert got == ref
     if own_threshold is not None:
         assert ref[0] == ""  # the case where binarizing at the argument gave a non-empty mask
-
-
-def test_tta_views_not_ported():
-    tm = UNetPRes(neurons=2, nbf=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinf.predict_masks_tta(tm, np.zeros((1, 16, 16, 1), np.float32), transforms=("identity", "hflip"),
-                               device="cpu")
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
