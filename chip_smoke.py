@@ -20,6 +20,10 @@ is non-zero:
      at CONV_EDGE_CASES in all three families, each bit-identical over two
      runs; the residual tail at the five shapes. Tolerance max|diff| <= 1e-4 *
      max(1, max|ref|): fp32 sums taken in another order over up to 9*256 terms.
+     Then the NaN canary (phase_canary): every kernel and family at the level
+     shapes, B=128 and B=1, with its inputs inside NaN-filled buffers (16-byte
+     aligned, and off it) and every free block of the allocator NaN-filled
+     before the launch; finite and within the same tolerance.
   3. UNetPRes at full width (neurons=16, nbf=101, seeded weights; hebb and
      oja) and the committed epoch-225 oja checkpoint (neurons=8): B=8 on
      the card against the same weights on the CPU port (activout and the
@@ -35,7 +39,8 @@ is non-zero:
      so host issue time is excluded; warm-up excluded; median of 20) at B=128
      and at B=1: each kernel, its plain version, its bound and the cuDNN
      call where one exists (for the head, torch.bmm of its product alone,
-     bmm_ms); serving tiles/s at neurons=16, chunk 128.
+     bmm_ms); serving tiles/s at neurons=16, chunk 128, under deterministic
+     cuDNN (utils.precision.serving_numerics) and, for the cost, without it.
 
   7. the backward kernels against their plain versions on the card, at the
      five level shapes, B=1 and B=128: the conv's input-gradient form with
@@ -92,14 +97,30 @@ is non-zero:
      to the predictor's, /healthz naming the card, the request's median
      latency); cli.infer --tta tta4 --save --quant int8 on a fake TGS
      directory (PNGs equal to their RLE rows); tiles/s at the identity,
-     tta4 and tta8 batched, tta8 sequential, int8.
+     tta4 and tta8 batched, tta8 sequential, int8, and the first three
+     again without deterministic cuDNN. tta8 folded against one pass a view
+     is held with torch.equal; a difference names, for each differing
+     (view, chunk), the first module whose output differs between the two
+     paths, and fails the run.
+  13. the export path (submit.export) at full width: programs for "cuda" of
+     UNetPRes neurons=16, nbf=101 (seeded weights), loaded with the default
+     device: the identity artifact at chunk 128 equal to the live
+     predict_masks bit for bit on 512 tiles with 1/9/36 launches a chunk
+     (head/tails/conv3x3); the tta4 artifact at chunk 32 (B=128 in the
+     program) equal to the live folded tta4 bit for bit; the head and
+     conv3x3 at B=1024 against their plain versions, and the tta8 artifact
+     at chunk 128 (B=1024) within 1.2e-7 of the live tta8; the int8
+     artifact equal to the live int8 forward; HTTP /predict from the tta4
+     artifact equal to MaskPredictor(tta4) bit for bit; export and load
+     seconds, the artifacts' tiles/s beside the live path's.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
 belong to the entry's "shape"; "launches" counts the serving request of
 phase 5 (the backward kernels: one eager training step), launches_train_step
 one eager training step (phase 9), launches_driver the driver's first run
 of phase 11, launches_tta8_batched / launches_calib / launches_int8 the
-paths of phase 12; keys ending in _b1 or _b128 give the same at the other batch size, max_abs_err_all_shapes the largest over every case,
+paths of phase 12, launches_export the identity artifact's 512 tiles in
+phase 13; keys ending in _b1 or _b128 give the same at the other batch size, max_abs_err_all_shapes the largest over every case,
 library_det_ms the library call under deterministic cuDNN, bmm_ms the
 head's product alone as one torch.bmm call.
 
@@ -109,6 +130,7 @@ The line before the last is the kernels' JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import json
@@ -205,6 +227,66 @@ def max_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     check(bool(torch.isfinite(got).all()), "non-finite kernel output")
     err = float((got.double() - ref.double()).abs().max())
     return err, 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+class _RawBytes:
+    """``n`` bytes of device memory at ``ptr``, as torch.as_tensor imports them (__cuda_array_interface__)."""
+
+    def __init__(self, ptr: int, n: int):
+        self.__cuda_array_interface__ = {"shape": (n,), "typestr": "|u1", "data": (ptr, False), "version": 2}
+
+
+def poison_free_blocks(dev) -> int:
+    """Fill every free block of the caching allocator on ``dev`` with all bits set (an fp32 NaN), so
+    that a kernel reading memory it never wrote, or leaving part of its output unwritten, shows as a
+    NaN. Returns the bytes filled."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    torch.cuda.synchronize(dev)
+    filled = 0
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] != index:
+            continue
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if blk["state"] == "inactive":
+                torch.as_tensor(_RawBytes(addr, blk["size"]), device=dev).fill_(255)
+                filled += blk["size"]
+            addr += blk["size"]
+    torch.cuda.synchronize(dev)
+    return filled
+
+
+def in_nan_buffer(t: torch.Tensor, offset: int = 4) -> torch.Tensor:
+    """A copy of ``t`` as a contiguous view ``offset`` floats into a NaN-filled buffer with
+    ``offset`` NaNs after it too (4 keeps 16-byte alignment)."""
+    buf = torch.full((t.numel() + 2 * offset,), float("nan"), dtype=t.dtype, device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def canary(fn, *args, offset: int = 4, **kw):
+    """``fn(*args, **kw)`` with every tensor argument inside a NaN-filled buffer (``offset`` floats
+    in) and every free block of the allocator (where the outputs land) NaN-filled before the launch."""
+    moved = [in_nan_buffer(a, offset) if isinstance(a, torch.Tensor) else a for a in args]
+    kw = {k: in_nan_buffer(v, offset) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    poison_free_blocks(next(a for a in moved if isinstance(a, torch.Tensor)).device)
+    return fn(*moved, **kw)
+
+
+@contextlib.contextmanager
+def serving_cudnn_not_deterministic():
+    """For timing only: the serving forward (eval.evaluate) under TF32-off alone, with cuDNN free to
+    pick algorithms that do not repeat their bits, as serving ran before the C5 repair."""
+    from plastic_unet_tpu_torch.eval import evaluate
+    from plastic_unet_tpu_torch.utils.precision import matmul_precision
+
+    real = evaluate.serving_numerics
+    evaluate.serving_numerics = lambda: matmul_precision("parity")
+    try:
+        yield
+    finally:
+        evaluate.serving_numerics = real
 
 
 class Errors:
@@ -365,8 +447,76 @@ def phase_kernels(dev):
             check(e <= tol, f"residual_tail B={b} {hw}x{hw}x{c}: max|diff| {e:.3g} > {tol:.3g}")
             errs.note("residual_tail", e, b, hw)
     print(f"[2] residual_tail 5 level shapes, B={B} and B=1: max|diff| {errs.all('residual_tail'):.3g}", flush=True)
+    for offset in (4, 1):  # 16-byte aligned, and off it
+        phase_canary(dev, offset)
     torch.cuda.synchronize()
     return errs
+
+
+def phase_canary(dev, offset: int):
+    """The NaN canary of every kernel and family at the level shapes, B=128 and B=1 (conv3x3 and its
+    input-gradient form in each family the shape takes, conv3x3_wgrad, the head's families, hebb and
+    oja): inputs inside NaN-filled buffers ``offset`` floats in (1: off 16-byte alignment), outputs in
+    NaN-filled blocks; each finite and within phase 2's tolerance of the plain version. A kernel
+    that reads memory it never wrote, or leaves part of its output unwritten, fails here where two
+    launches back to back (the same blocks) would agree. Returns [(kernel, case, max|diff|)]."""
+    from plastic_unet_tpu_torch.ops import conv3x3 as c3
+    from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, conv3x3_wgrad_plain
+    from plastic_unet_tpu_torch.ops.plastic_head import FAMILIES, head_plan, plastic_head, plastic_head_plain
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    lines = []
+
+    def hold(kname, case, got, ref):
+        worst = 0.0
+        for gt, rf in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
+            if gt is not None:
+                e, tol = max_err(gt, rf)  # raises on a non-finite output
+                check(e <= tol, f"canary {kname} {case} (offset {offset}): max|diff| {e:.3g} > {tol:.3g}")
+                worst = max(worst, e)
+        lines.append((kname, case, worst))
+
+    for b in (B, 1):
+        for hw, c in LEVELS:
+            x, res, gate = rnd(b, hw, hw, c), rnd(b, hw, hw, c), rnd(b, hw, hw, c)
+            k, bias = c3.hwio(rnd(c, c, 3, 3, scale=1.0 / (3 * c ** 0.5))), rnd(c, scale=0.1)
+            for fam in c3.FAMILIES:
+                try:
+                    plan = c3.conv3x3_plan(b, hw, hw, c, c, family=fam)
+                    dplan = c3.conv3x3_plan(b, hw, hw, c, c, True, family=fam)
+                except ValueError:  # a family that cannot take the shape
+                    continue
+                kw = dict(relu_in=True, relu_res=True, relu_out=True)
+                hold("conv3x3", f"B={b} {hw}^2x{c} {fam}",
+                     canary(c3.conv3x3, x, k, bias, res, plan=plan, offset=offset, **kw),
+                     c3.conv3x3_plain(x, k, bias, res, **kw))
+                hold("conv3x3_dgrad", f"B={b} {hw}^2x{c} {fam}",
+                     canary(c3.conv3x3_dgrad, x, k, res, gate=gate, in_gate=res, plan=dplan, offset=offset),
+                     c3.conv3x3_dgrad_plain(x, k, res, gate=gate, in_gate=res))
+            hold("conv3x3_wgrad", f"B={b} {hw}^2x{c}",
+                 canary(conv3x3_wgrad, x, res, relu_in=True, layout="oihw", offset=offset),
+                 conv3x3_wgrad_plain(x, res, relu_in=True, layout="oihw"))
+        n = 101
+        w, alpha, eta = rnd(n, n, scale=0.01), rnd(n, n).abs() * 0.01, torch.full((1,), 0.01, device=dev)
+        x, hebb = rnd(b, n, n), rnd(b, n, n, scale=0.1)
+        for fam in FAMILIES:
+            try:
+                plan = head_plan(b, n, family=fam)
+            except ValueError:
+                continue
+            for rule in ("hebb", "oja"):
+                hold("plastic_head", f"B={b} n={n} {fam} {rule}",
+                     canary(plastic_head, w, alpha, eta, x, hebb, rule=rule, plan=plan, offset=offset),
+                     plastic_head_plain(w, alpha, eta, x, hebb, rule=rule))
+    torch.cuda.synchronize()
+    print(f"[2] NaN canary, inputs {offset} float(s) into NaN-filled buffers, outputs in NaN-filled blocks: "
+          f"{len(lines)} cases (conv3x3 and dgrad in each family, wgrad, the head's families; level shapes, "
+          f"B={B} and B=1) finite and within tolerance, max|diff| {max(e for *_, e in lines):.3g}", flush=True)
+    return lines
 
 
 # --------------------------------------------------------------------------- phase 3
@@ -742,15 +892,24 @@ def phase_times(dev, name, full, main_counts, errs):
     tails_ms = sum(TAILS_PER_CHUNK[hw] * table[("residual_tail", B, hw)]["ms"] for hw, _ in LEVELS)
 
     xs = np.random.default_rng(2).random((4 * B, 101, 101), dtype=np.float32)
-    full.predict_probs(xs[:B])
-    torch.cuda.synchronize()
-    secs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        full.predict_probs(xs)
+
+    def serve_seconds():
+        """Median of 3 host-clock timings of a 4-chunk request."""
+        full.predict_probs(xs[:B])
         torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    sec = float(np.median(secs))
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            full.predict_probs(xs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return float(np.median(secs))
+
+    sec = serve_seconds()
+    with serving_cudnn_not_deterministic():
+        sec_free = serve_seconds()
+    sec_again = serve_seconds()
+    table["serving_tiles_s"] = 4 * B / sec
     chunk_ms = sec / 4 * 1e3
     xc = torch.from_numpy(xs[:B, :, :, None]).to(dev)
     h0 = full.model.initial_zero_hebb(B, device=dev)
@@ -762,6 +921,10 @@ def phase_times(dev, name, full, main_counts, errs):
           f"device idle share {max(0.0, 1 - fwd_ms / chunk_ms):.1%}; residual tails "
           f"{tails_ms:.3f} ms + plastic head {table[('plastic_head', B, 101)]['ms']:.4f} ms of it; "
           f"forward bound {forward_flops(16) / 1e9:.3f} GFLOP/tile -> {fb:.3f} ms per chunk at the fp32 peak",
+          flush=True)
+    print(f"[6] serving under deterministic cuDNN (utils.precision.serving_numerics, the C5 repair) "
+          f"{4 * B / sec:.1f} then {4 * B / sec_again:.1f} tiles/s; between them, cuDNN free to pick algorithms "
+          f"that do not repeat (as before the repair) {4 * B / sec_free:.1f} tiles/s (NVIDIA card: {name})",
           flush=True)
 
     sources = {
@@ -1257,29 +1420,28 @@ def write_tgs_dir(root: str, n: int = 30, n_test: int = 7, size: int = 101, seed
     return root
 
 
-def expect_launches(label: str, want: dict) -> dict:
+def expect_launches(label: str, want: dict, phase: int = 12) -> dict:
     """The launch counts since the last reset_counts() are ``want`` (0 for every kernel not named)."""
     counts = read_counts()
     full = dict.fromkeys(COUNTED, 0)
     full.update(want)
     check(counts == full, f"{label}: launches {counts} != {full}")
-    print(f"[12] {label}: launches {({k: v for k, v in counts.items() if v})}", flush=True)
+    print(f"[{phase}] {label}: launches {({k: v for k, v in counts.items() if v})}", flush=True)
     return counts
 
 
-def first_unrepeatable_layer(model, x, tries: int = 5):
-    """Pairs of forwards of the chunk ``x`` with zero traces, up to ``tries``:
+def first_unrepeatable_layer(model, x, tries: int = 2):
+    """Pairs of forwards of the chunk ``x`` (any chunk) with zero traces, up to ``tries``:
     (name, max|diff|) of the first module, in call order (a cuDNN layer, or a
     DownRes / Middle / UpRes, whose tails are this package's kernels), whose
-    output differs within a pair, or None if every pair agreed."""
-    from plastic_unet_tpu_torch.utils.precision import matmul_precision
-
+    output differs within a pair, or None if every pair agreed. The caller
+    sets the numerics (utils.precision)."""
     runs, hooks = [], []
     for name, m in model.named_modules():
         if name:
             hooks.append(m.register_forward_hook(lambda _m, _i, out, name=name: runs[-1].append((name, out.clone()))))
     try:
-        with torch.inference_mode(), matmul_precision("parity"):
+        with torch.inference_mode():
             for _ in range(tries):
                 runs[:] = []
                 for _ in range(2):
@@ -1294,6 +1456,42 @@ def first_unrepeatable_layer(model, x, tries: int = 5):
     return None
 
 
+def digest(t) -> tuple[int, float]:
+    """(sum of the fp32 bit patterns, sum of |t|): equal for equal bits, almost surely not otherwise.
+    The model's own output (a PlasticOutput) is digested by its masks."""
+    if isinstance(t, tuple):
+        t = t[1]
+    t = t.detach()
+    return int(t.contiguous().view(torch.int32).to(torch.int64).sum()), float(t.double().abs().sum())
+
+
+def module_trace(model, x) -> list:
+    """[(module name, digest of its first input, digest of its output)] of one forward of the chunk
+    ``x`` with zero traces, in call order; the model itself last, as "<model: head output>". The
+    caller sets the numerics."""
+    rec, hooks = [], []
+    for name, m in model.named_modules():
+        hooks.append(m.register_forward_hook(
+            lambda _m, inp, out, name=name or "<model: head output>": rec.append((name, digest(inp[0]), digest(out)))))
+    try:
+        with torch.inference_mode():
+            model(x, model.initial_zero_hebb(x.shape[0], device=x.device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return rec
+
+
+def first_differing_module(model, a, b):
+    """Two chunks of equal values (taken from two paths' tensors): (name of the first module, in call
+    order, whose output differs between their forwards, whether its input's digest was equal), or
+    None where the forwards agree."""
+    for (name, ia, oa), (_, ib, ob) in zip(module_trace(model, a), module_trace(model, b)):
+        if oa != ob:
+            return name, ia == ib
+    return None
+
+
 def phase_serving_features(dev, smi):
     """The serving features at full width (UNetPRes neurons=16, nbf=101, seeded weights, fp32 parity) on
     SERVE_TILES synthetic tiles: the TTA views, tta8 batched against sequential, tta4 against the CPU port,
@@ -1304,13 +1502,13 @@ def phase_serving_features(dev, smi):
     from plastic_unet_tpu_torch.data.synthetic import synthetic_tiles
     from plastic_unet_tpu_torch.eval.evaluate import predict_masks
     from plastic_unet_tpu_torch.ops import quant as tq
-    from plastic_unet_tpu_torch.ops.augment import TTA_TRANSFORMS, TTA_VIEWS_4, TTA_VIEWS_8, tta_merge
+    from plastic_unet_tpu_torch.ops.augment import TTA_TRANSFORMS, TTA_VIEWS_4, TTA_VIEWS_8
     from plastic_unet_tpu_torch.ops.rle import rle_decode
     from plastic_unet_tpu_torch.submit.http_server import serve
     from plastic_unet_tpu_torch.submit.inference import inference, predict_masks_tta
     from plastic_unet_tpu_torch.submit.quant import quantize_for_serving
     from plastic_unet_tpu_torch.submit.server import MaskPredictor
-    from plastic_unet_tpu_torch.utils.precision import training_numerics
+    from plastic_unet_tpu_torch.utils.precision import serving_numerics
 
     t_phase = time.time()
     imgs, _ = synthetic_tiles(SERVE_TILES, size=101, seed=78)
@@ -1335,25 +1533,27 @@ def phase_serving_features(dev, smi):
             f"MAIN PATH (tta8 {label}, {SERVE_TILES} tiles = {len(TTA_VIEWS_8) * chunks} chunks)",
             {"plastic_head": HEAD_PER_CHUNK * 8 * chunks, "residual_tail": TAIL_PER_CHUNK * 8 * chunks,
              "conv3x3": CONV_PER_CHUNK * 8 * chunks})
-    if torch.equal(outs["batched"], outs["sequential"]):
-        print("[12] tta8 batched views == sequential views, bit for bit", flush=True)
-    else:
+    if not torch.equal(outs["batched"], outs["sequential"]):
         # The chunks hold the same samples at the same places either way (SERVE_TILES is a multiple of B),
-        # so a difference is a layer that does not repeat its bits from run to run.
+        # so a difference is a layer whose bits depend on more than its input's values. Name it, then fail.
         d = float((outs["batched"] - outs["sequential"]).abs().max())
-        culprit = first_unrepeatable_layer(model, X[:B])
-        with training_numerics():  # deterministic cuDNN, as the training step runs: each view's masks, unmerged
-            views = [TTA_TRANSFORMS[t][0](X, True).contiguous() for t in TTA_VIEWS_8]
-            seq_v = torch.stack([predict_masks(model, v, device=dev) for v in views])
-            bat_v = predict_masks(model, torch.cat(views), device=dev).reshape(seq_v.shape)
-            per_view = [float((a - b).abs().max()) for a, b in zip(seq_v, bat_v)]
-            merged = float((tta_merge(seq_v, TTA_VIEWS_8) - tta_merge(bat_v, TTA_VIEWS_8)).abs().max())
-            det_culprit = first_unrepeatable_layer(model, X[:B])
-        print(f"[12] tta8 batched views != sequential: max|diff| {d:.3g}; the first module whose output differs "
-              f"between two forwards of one chunk (of up to 5 pairs): {culprit} (ROADMAP C5); under "
-              f"deterministic cuDNN: each view's masks batched vs sequential max|diff| {per_view}, merged "
-              f"{merged:.3g}, first module differing between two forwards {det_culprit}", flush=True)
-        check(d <= 1e-6, f"tta8 batched vs sequential max|diff| {d:.3g} > 1e-6")
+        views = [TTA_TRANSFORMS[t][0](X, True).contiguous() for t in TTA_VIEWS_8]
+        allv = torch.cat(views)
+        found = []
+        for v, t in enumerate(TTA_VIEWS_8):
+            one = predict_masks(model, views[v], device=dev)
+            folded = predict_masks(model, allv[v * SERVE_TILES:(v + 1) * SERVE_TILES], device=dev)
+            for c in range(chunks):
+                a, b = views[v][c * B:(c + 1) * B], allv[v * SERVE_TILES + c * B:v * SERVE_TILES + (c + 1) * B]
+                if not torch.equal(one[c * B:(c + 1) * B], folded[c * B:(c + 1) * B]):
+                    with serving_numerics():
+                        found.append((t, c, first_differing_module(model, a, b),
+                                      first_unrepeatable_layer(model, a)))
+        print(f"[12] tta8 batched views != sequential: max|diff| {d:.3g}; per (view, chunk): the first module "
+              f"whose output differs between the two paths (and whether its input's digest was equal), the "
+              f"first module differing between two forwards of the chunk: {found}", flush=True)
+        check(False, f"tta8 batched vs sequential max|diff| {d:.3g}: not bit for bit (ROADMAP C5)")
+    print("[12] tta8 batched views == sequential views, bit for bit (torch.equal)", flush=True)
     probs = outs["batched"]
     check(tuple(probs.shape) == (SERVE_TILES, 101, 101) and bool(torch.isfinite(probs).all())
           and float(probs.min()) >= 0.0 and float(probs.max()) <= 1.0, "tta8: bad probabilities")
@@ -1393,6 +1593,14 @@ def phase_serving_features(dev, smi):
                   f"against the float64 plain version (max|diff| {float((got - want).abs().max()):.3g})")
     print(f"[12] int8 convs on the card == their float64 plain versions, bit for bit: qconv3_same at "
           f"{len(QCONV_SHAPES)} shapes, qconvT3_s2_valid at {len(QCONVT_SHAPES)}, B={B}", flush=True)
+    amaxes = torch.rand((4096,), device=dev, generator=g) * 20 + 1e-3
+    kernel = torch.randn((256, 128, 3, 3), device=dev, generator=g)
+    for what, card_q, cpu_q_ in (("act_qparams", tq.act_qparams(amaxes), tq.act_qparams(amaxes.cpu())),
+                                 ("quantize_weight", tq.quantize_weight(kernel, 0), tq.quantize_weight(kernel.cpu(), 0))):
+        check(all(bool(torch.equal(a.cpu(), b)) for a, b in zip(card_q, cpu_q_)),
+              f"int8 {what} on the card differs from the CPU's")
+    print("[12] int8 scales and quantized weights on the card == on the CPU, bit for bit (4096 ranges, a "
+          "256x128x3x3 kernel)", flush=True)
 
     torch.cuda.synchronize()
     reset_counts()
@@ -1444,6 +1652,14 @@ def phase_serving_features(dev, smi):
         "tta8 sequential": rate(lambda: predict_masks_tta(model, tiles, transforms=TTA_VIEWS_8, device=dev)),
         "identity int8": rate(lambda: predict_masks_tta(qmodel, tiles, device=dev)),
     }
+    with serving_cudnn_not_deterministic():  # the cost of the C5 repair, in the same call
+        rates.update({
+            "identity fp32, cuDNN not deterministic": rate(lambda: predict_masks_tta(model, tiles, device=dev)),
+            "tta4 batched, cuDNN not deterministic": rate(lambda: predict_masks_tta(
+                model, tiles, transforms=TTA_VIEWS_4, batch_views=True, device=dev)),
+            "tta8 batched, cuDNN not deterministic": rate(lambda: predict_masks_tta(
+                model, tiles, transforms=TTA_VIEWS_8, batch_views=True, device=dev)),
+        })
     print(f"[12] serving tiles/s (NVIDIA card: {smi}), neurons=16, chunk {B}, {SERVE_TILES} tiles from the host, "
           f"host clock, median of 3: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
           + f"; calibration {CALIB_TILES} tiles {calib_s:.3f} s", flush=True)
@@ -1506,6 +1722,163 @@ def phase_serving_features(dev, smi):
           f"submission.csv with {len(rows)} rows, {sum(1 for _, r in rows if r)} non-empty; 7 PNGs equal to their "
           f"RLE masks", flush=True)
     print(f"[12] phase 12 took {time.time() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+# --------------------------------------------------------------------------- phase 13
+
+EXPORT_TTA4_CHUNK = 32  # 4 views x 32 tiles: B=128 inside the program, as the live folded path's chunks
+
+
+def phase_export(dev, smi, live_rate):
+    """The export path on the card (submit.export, cli.export_model's function): UNetPRes neurons=16,
+    nbf=101, seeded weights, SERVE_TILES synthetic tiles; programs for ``dev`` (the card: "cuda"),
+    loaded with the default device. Returns the launch counts of the identity artifact's run."""
+    from plastic_unet_tpu_torch.data.synthetic import synthetic_tiles
+    from plastic_unet_tpu_torch.eval.evaluate import predict_masks
+    from plastic_unet_tpu_torch.ops.augment import TTA_VIEWS_4, TTA_VIEWS_8
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, hwio
+    from plastic_unet_tpu_torch.ops.plastic_head import head_plan, plastic_head, plastic_head_plain
+    from plastic_unet_tpu_torch.submit.export import export_predictor, load_predictor
+    from plastic_unet_tpu_torch.submit.http_server import serve
+    from plastic_unet_tpu_torch.submit.inference import predict_masks_tta
+    from plastic_unet_tpu_torch.submit.quant import quantize_for_serving
+    from plastic_unet_tpu_torch.submit.server import MaskPredictor
+
+    t_phase = time.time()
+    imgs, _ = synthetic_tiles(SERVE_TILES, size=101, seed=79)
+    tiles = np.ascontiguousarray(imgs[:, 0, :, :, None])  # (512, 101, 101, 1) NHWC, the channel's stride 0
+    X = torch.from_numpy(tiles).to(dev)
+    model = seeded_model(SERVE_NEURONS, "oja", 0).to(dev).eval()
+    chunks = SERVE_TILES // B
+    times = {}
+
+    def exported(name, m, tmp, **kw):
+        """export_predictor for "cuda", then load_predictor (default device) and warm up; times noted."""
+        t0 = time.perf_counter()
+        path = export_predictor(m, os.path.join(tmp, name), platforms=(dev.type,), **kw)
+        t1 = time.perf_counter()
+        pred = load_predictor(path, device=None if dev.type == "cuda" else dev).warmup()  # the card by default
+        torch.cuda.synchronize()
+        times[name] = (t1 - t0, time.perf_counter() - t1)
+        check(pred.device.type == dev.type, f"{name}: loaded on {pred.device}")
+        return pred
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ident = exported("identity", model, tmp)
+        reset_counts()
+        got = ident.predict(tiles)
+        torch.cuda.synchronize()
+        counts = expect_launches(f"MAIN PATH (export): the identity artifact, chunk {B}, {SERVE_TILES} tiles = "
+                                 f"{chunks} chunks", {"plastic_head": HEAD_PER_CHUNK * chunks,
+                                                      "residual_tail": TAIL_PER_CHUNK * chunks,
+                                                      "conv3x3": CONV_PER_CHUNK * chunks}, 13)
+        want = predict_masks(model, X, device=dev).cpu().numpy()
+        check(got.dtype == np.float32 and got.shape == (SERVE_TILES, 101, 101) and np.isfinite(got).all(),
+              "identity artifact: bad masks")
+        check(np.array_equal(got, want), f"identity artifact vs live predict_masks max|diff| "
+              f"{float(np.abs(got - want).max()):.3g}: not bit for bit")
+        print(f"[13] identity artifact (chunk {B}) == live predict_masks on {SERVE_TILES} tiles, bit for bit",
+              flush=True)
+
+        tta4 = exported("tta4", model, tmp, chunk=EXPORT_TTA4_CHUNK, tta=TTA_VIEWS_4)
+        got = tta4.predict(tiles)
+        want = predict_masks_tta(model, X, transforms=TTA_VIEWS_4, batch_views=True, device=dev).cpu().numpy()
+        check(np.array_equal(got, want), f"tta4 artifact (chunk {EXPORT_TTA4_CHUNK}) vs live tta4 batched max|diff| "
+              f"{float(np.abs(got - want).max()):.3g}: not bit for bit")
+        print(f"[13] tta4 artifact (chunk {EXPORT_TTA4_CHUNK}: B={4 * EXPORT_TTA4_CHUNK} in the program) == live "
+              f"predict_masks_tta(batch_views=True), bit for bit", flush=True)
+
+        # tta8 at chunk 128 is a forward of B=1024: the kernels at that batch against their plain versions
+        g = torch.Generator(device=dev).manual_seed(13)
+        big = 8 * B
+        n = 101
+        w, alpha, eta = (torch.randn((n, n), generator=g, device=dev) * 0.01,
+                         torch.rand((n, n), generator=g, device=dev) * 0.01, torch.full((1,), 0.01, device=dev))
+        xh = torch.randn((big, n, n), generator=g, device=dev)
+        hebb = torch.randn((big, n, n), generator=g, device=dev) * 0.1
+        for gt, rf in zip(plastic_head(w, alpha, eta, xh, hebb, rule="oja"),
+                          plastic_head_plain(w, alpha, eta, xh, hebb, rule="oja")):
+            e, tol = max_err(gt, rf)
+            check(e <= tol, f"plastic_head B={big}: max|diff| {e:.3g} > {tol:.3g}")
+        errs_big = []
+        for hw, c in LEVELS:
+            xx = torch.randn((big, hw, hw, c), generator=g, device=dev)
+            k = hwio(torch.randn((c, c, 3, 3), generator=g, device=dev) / (3 * c ** 0.5))
+            bias, res = torch.randn((c,), generator=g, device=dev) * 0.1, torch.randn((big, hw, hw, c), generator=g,
+                                                                                        device=dev)
+            kw = dict(relu_in=True, relu_res=True, relu_out=True)
+            e, tol = max_err(conv3x3(xx, k, bias, res, **kw), conv3x3_plain(xx, k, bias, res, **kw))
+            check(e <= tol, f"conv3x3 B={big} {hw}^2x{c}: max|diff| {e:.3g} > {tol:.3g}")
+            errs_big.append(round(e, 9))
+            del xx, res
+        print(f"[13] B={big} (tta8 at chunk {B}): plastic_head ({head_plan(big, n).family}) and conv3x3 at the five "
+              f"level shapes within tolerance of their plain versions (conv max|diff| {errs_big})", flush=True)
+        tta8 = exported("tta8", model, tmp, tta=TTA_VIEWS_8)
+        got = tta8.predict(tiles)
+        want = predict_masks_tta(model, X, transforms=TTA_VIEWS_8, batch_views=True, device=dev).cpu().numpy()
+        e = float(np.abs(got - want).max())
+        check(np.isfinite(got).all() and e <= 1.2e-7, f"tta8 artifact (B={big}) vs live tta8 max|diff| {e:.3g} > 1.2e-7")
+        print(f"[13] tta8 artifact (chunk {B}: B={big} in the program) vs live tta8 batched: max|diff| {e:.3g} "
+              f"(<= 1.2e-7)", flush=True)
+
+        qmodel = quantize_for_serving(model, X[:CALIB_TILES], device=dev)
+        int8 = exported("int8", qmodel, tmp)
+        reset_counts()
+        got = int8.predict(tiles)
+        torch.cuda.synchronize()
+        counts_int8 = expect_launches(f"int8 artifact, {SERVE_TILES} tiles", {"plastic_head": HEAD_PER_CHUNK * chunks},
+                                      13)
+        want = predict_masks(qmodel, X, device=dev).cpu().numpy()
+        check(np.array_equal(got, want), f"int8 artifact vs live int8 forward max|diff| "
+              f"{float(np.abs(got - want).max()):.3g}: not bit for bit")
+        print(f"[13] int8 artifact (49 ranges as constants of the program) == live int8 forward, bit for bit; "
+              f"launches {({k: v for k, v in counts_int8.items() if v})}", flush=True)
+
+        live_pred = MaskPredictor(model, tta=TTA_VIEWS_4, device=dev)
+        server = serve(tta4, "127.0.0.1", 0, block=False)
+        try:
+            host, port = server.server_address
+            buf = io.BytesIO()
+            np.save(buf, tiles[:B, :, :, 0], allow_pickle=False)
+            req = urllib.request.Request(f"http://{host}:{port}/predict", data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got = np.load(io.BytesIO(r.read()), allow_pickle=False)
+            with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+        want = live_pred.predict(tiles[:B, :, :, 0])
+        check(np.array_equal(got, want), f"HTTP /predict from the tta4 artifact vs MaskPredictor(tta4) max|diff| "
+              f"{float(np.abs(got - want).max()):.3g}: not bit for bit")
+        check(torch.cuda.get_device_name(0) in health["device"], f"/healthz: {health}")
+        print(f"[13] HTTP /predict ({B} tiles) from the tta4 artifact == MaskPredictor(tta4, one pass a view), bit "
+              f"for bit; /healthz {health}", flush=True)
+
+        def rate(fn, reps=3):
+            fn()
+            torch.cuda.synchronize()
+            secs = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            return SERVE_TILES / float(np.median(secs))
+
+        live = MaskPredictor(model, device=dev)
+        rates = {"identity artifact": rate(lambda: ident.predict(tiles)),
+                 "identity live": rate(lambda: live.predict(tiles)),
+                 f"tta4 artifact (chunk {EXPORT_TTA4_CHUNK})": rate(lambda: tta4.predict(tiles)),
+                 f"tta8 artifact (B={big})": rate(lambda: tta8.predict(tiles)),
+                 "int8 artifact": rate(lambda: int8.predict(tiles))}
+    print(f"[13] export and load+warm-up seconds (NVIDIA card: {smi}): "
+          + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in times.items()), flush=True)
+    print(f"[13] serving tiles/s (NVIDIA card: {smi}), {SERVE_TILES} tiles from the host, host clock, median of 3: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + f"; phase 6's live identity {live_rate:.1f}",
+          flush=True)
+    print(f"[13] phase 13 took {time.time() - t_phase:.1f} s", flush=True)
     return counts
 
 
@@ -1593,6 +1966,9 @@ def main() -> int:
     for entry in kernels:  # launches of phase 12's paths
         for path in ("tta8_batched", "calib", "int8"):
             entry[f"launches_{path}"] = serving_counts[path][entry["name"]]
+    export_counts = phase_export(dev, smi, fwd_table["serving_tiles_s"])
+    for entry in kernels:  # launches of phase 13's identity artifact
+        entry["launches_export"] = export_counts[entry["name"]]
     print(f"[done] {time.time() - t0:.1f}s; card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

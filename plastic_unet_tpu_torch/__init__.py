@@ -4,7 +4,7 @@ The JAX package stays the reference; this package re-implements its serving
 path (UNetPRes forward with a zero trace, the best-threshold search on
 validation, masks, RLE strings and ``submission.csv``; the dihedral TTA
 views, the single-image inference, the PNG mask dump, the HTTP endpoint
-and int8 post-training quantization), its
+and int8 post-training quantization, the exported serving artifacts), its
 reference-parity training step (the B=1 lifetime loop with the detached
 trace, BCE, Adam and a per-sample StepLR; lanes for B>1) and the training
 entry point around it (the driver, checkpoints, data staging and the
@@ -32,6 +32,9 @@ Module paths mirror the JAX package, so each module has its counterpart:
   - eval.evaluate, ops.iou, ops.losses, ops.rle, ops.quant, submit.inference,
     submit.server, submit.quant, submit.http_server, data.synthetic,
     utils.torch_interop, utils.precision
+  - submit.export, cli.export_model <-> their namesakes (torch.export
+    programs in place of jax.export's StableHLO; ops.export_ops makes the
+    serving kernels custom ops a program can call)
 
 Layout: images are NHWC ``(N, H, W, C)`` and masks ``(N, nbf, nbf)``, as in
 the JAX package; activations inside the model are contiguous NHWC tensors.
@@ -43,7 +46,8 @@ there is no silent fallback to the CPU.
 Tests on the CPU: ``python -m pytest tests/test_torch_*.py -q`` (port
 against JAX, the training trajectory included). On the card:
 ``python3 chip_smoke.py`` (phases 7-10 are the training step, phase 11
-the training entry point, phase 12 the serving features).
+the training entry point, phase 12 the serving features, phase 13 the
+exported serving artifacts).
 """
 
 from __future__ import annotations

@@ -3,10 +3,11 @@
 
 Every sample is evaluated with a zero hebb trace and the returned traces
 are discarded. The forward runs in chunks of ``chunk`` samples, the last one
-zero-padded to the full chunk, in parity precision. The best-threshold
-search sweeps the reference's 31 thresholds logit(linspace(0.3, 0.7, 31))
-against the sigmoid outputs (a preserved quirk: logit-space values compared
-with probabilities) and keeps the first argmax.
+zero-padded to the full chunk, in parity precision with deterministic cuDNN
+(utils.precision.serving_numerics). The best-threshold search sweeps the
+reference's 31 thresholds logit(linspace(0.3, 0.7, 31)) against the sigmoid
+outputs (a preserved quirk: logit-space values compared with probabilities)
+and keeps the first argmax.
 
 The entry points take ``device=None`` (CUDA; see
 plastic_unet_tpu_torch.resolve_device) and move the model there.
@@ -20,7 +21,7 @@ import torch
 from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.ops.iou import threshold_sweep
 from plastic_unet_tpu_torch.ops.losses import bce_probs
-from plastic_unet_tpu_torch.utils.precision import matmul_precision
+from plastic_unet_tpu_torch.utils.precision import serving_numerics
 
 
 def _as_tensor(a, device) -> torch.Tensor:
@@ -43,7 +44,7 @@ def predict_masks(model, X, *, chunk: int = 128, device=None) -> torch.Tensor:
     X = _as_tensor(X, dev)
     n = X.shape[0]
     out = torch.empty((n, model.nbf, model.nbf), device=dev)
-    with torch.inference_mode(), matmul_precision("parity"):
+    with torch.inference_mode(), serving_numerics():
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
             hebb = model.initial_zero_hebb(chunk, device=dev)

@@ -9,9 +9,11 @@ Where the JAX package leaves a conv to XLA, the port leaves it to cuDNN (in
 parity precision): each level's entry conv (Cin != C), the ConvTranspose and
 the 1x1 outconv, through a channels_last NCHW view of the NHWC tensor. The
 3x3 convs of every residual tail run on the conv3x3 kernel through
-ops.residual_tail, forward and backward; the cuDNN layers, pool, pad, cat
-and dropout differentiate through autograd. Weights and biases take the torch-default init
-(U(-1/sqrt(fan_in), 1/sqrt(fan_in))) from an explicit generator.
+ops.residual_tail, forward and backward (while torch.export traces the
+forward, through the same launches as the custom op of ops.export_ops); the
+cuDNN layers, pool, pad, cat and dropout differentiate through autograd.
+Weights and biases take the torch-default init (U(-1/sqrt(fan_in),
+1/sqrt(fan_in))) from an explicit generator.
 
 int8 serving (``quant``, the JAX blocks' QuantConv3 / QuantConvT3): the 49
 quantized convs (each level's entry conv, the four tail convs of each of
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from plastic_unet_tpu_torch.ops.export_ops import residual_tail_forward
 from plastic_unet_tpu_torch.ops.quant import qconv3_same, qconvT3_s2_valid
 from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_ranges
 
@@ -48,10 +51,27 @@ def init_conv_(conv: nn.Module, generator: torch.Generator | None) -> None:
             p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
 
 
+def dense_strides(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous, with the strides a fresh tensor of its shape has.
+
+    A contiguous tensor's size-1 dims may carry any stride: numpy's newaxis
+    gives 0 (images (N, H, W) -> (N, H, W, 1)), a copy or ``torch.cat`` 1.
+    cuDNN reads the strides when it picks the algorithm, so the same image
+    with another stride on its channel dim took another algorithm for the
+    entry conv (Cin=1) and other bits (ROADMAP.md, C5: one pass a TTA view
+    against the views folded into the batch). The view costs no copy."""
+    x = x.contiguous()
+    want, step = [], 1
+    for size in reversed(x.shape):
+        want.insert(0, step)
+        step *= max(size, 1)
+    return x if x.stride() == tuple(want) else x.as_strided(x.shape, want)
+
+
 def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """An nn.Conv2d / nn.ConvTranspose2d on NHWC ``x`` through cuDNN's
     channels_last path; returns contiguous NHWC, as the kernels take it."""
-    y = conv(x.permute(0, 3, 1, 2))
+    y = conv(dense_strides(x).permute(0, 3, 1, 2))
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -180,6 +200,8 @@ def _trunk_forward(seq: nn.ModuleList, x: torch.Tensor, quant: str = "") -> torc
         for conv, m in zip(convs, ranges):
             _note_range(conv, m)
         return out
+    if torch.compiler.is_exporting():  # the same launches as a custom op torch.export can trace
+        return residual_tail_forward(x, *params)
     return residual_tail(x, *params)
 
 

@@ -35,6 +35,7 @@ from plastic_unet_tpu_torch.models.blocks import (
     init_conv_,
     max_pool_2x2,
 )
+from plastic_unet_tpu_torch.ops.export_ops import plastic_head_forward
 from plastic_unet_tpu_torch.ops.plastic_head import plastic_head
 from plastic_unet_tpu_torch.ops.plasticity import check_head_args
 
@@ -68,6 +69,7 @@ class UNetPRes(nn.Module):
         super().__init__()
         check_head_args(rule, alfa_type)
         n = neurons
+        self.n_channels, self.neurons = n_channels, neurons
         self.nbf, self.rule, self.alfa_type, self.plastic, self.quant = nbf, rule, alfa_type, plastic, quant
         self.dropout_ratio = dropout_ratio
         if plastic:
@@ -154,7 +156,11 @@ class UNetPRes(nn.Module):
         if not self.plastic:
             # vanilla U-Net: sigmoid on the trunk logits; the trace passes through
             return PlasticOutput(activ=activin, activout=torch.sigmoid(activin), hebb=hebb)
-        activ, activout, new_hebb = plastic_head(
-            self.w, self.alpha, self.eta, activin, hebb, rule=self.rule, alfa_type=self.alfa_type
-        )
+        if torch.compiler.is_exporting():  # the same launch as a custom op torch.export can trace
+            activ, activout, new_hebb = plastic_head_forward(
+                self.w, self.alpha, self.eta, activin, hebb, self.rule, self.alfa_type)
+        else:
+            activ, activout, new_hebb = plastic_head(
+                self.w, self.alpha, self.eta, activin, hebb, rule=self.rule, alfa_type=self.alfa_type
+            )
         return PlasticOutput(activ=activ, activout=activout, hebb=new_hebb)

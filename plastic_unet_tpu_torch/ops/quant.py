@@ -9,8 +9,14 @@ plastic_unet_tpu.ops.quant).
   * the product in exact int32, then one dequant in the JAX package's
     order: ``acc.float() * (sx * sw) + bias``.
 
-Every scale is an fp32 computation (``127.0 / amax`` on an fp32 tensor),
-``torch.round`` rounds half to even as ``jnp.round`` does, then the value is
+Every scale is an fp32 division of two tensors, ``127 / amax`` and
+``amax / 127``, correctly rounded on every device as JAX's are. A Python
+number in its place would not be: torch computes ``127.0 / t`` as
+``t.reciprocal() * 127.0`` (two roundings: 1 in 4 values an ulp off the
+division, here and on the card), and the card computes ``t / 127.0`` as
+``t * (1 / 127)``, so the card's scales were an ulp off the CPU's, enough
+to move an activation across a rounding step of the next conv. Then
+``torch.round`` rounds half to even as ``jnp.round`` does, and the value is
 clipped to +-127; no zero point, so SAME zero padding is exact in the
 integer domain.
 
@@ -43,9 +49,9 @@ def act_qparams(amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(inv_scale, scale) of a per-tensor symmetric int8 range. amax == 0
     gives scale 0: the quantized tensor is all zeros, the output the bias."""
     amax = amax.to(torch.float32)
-    zero = torch.zeros_like(amax)
-    inv = torch.where(amax > 0, 127.0 / amax, zero)
-    scale = torch.where(amax > 0, amax / 127.0, zero)
+    zero, q = torch.zeros_like(amax), torch.full_like(amax, 127.0)
+    inv = torch.where(amax > 0, q / amax, zero)
+    scale = torch.where(amax > 0, amax / q, zero)
     return inv, scale
 
 
@@ -61,9 +67,9 @@ def quantize_weight(kernel: torch.Tensor, cout_axis: int) -> tuple[torch.Tensor,
     k = kernel.to(torch.float32)
     axes = tuple(a for a in range(k.dim()) if a != cout_axis)
     wmax = torch.amax(torch.abs(k), dim=axes)
-    zero = torch.zeros_like(wmax)
-    inv = torch.where(wmax > 0, 127.0 / wmax, zero)
-    scale = torch.where(wmax > 0, wmax / 127.0, zero)
+    zero, q = torch.zeros_like(wmax), torch.full_like(wmax, 127.0)
+    inv = torch.where(wmax > 0, q / wmax, zero)
+    scale = torch.where(wmax > 0, wmax / q, zero)
     shape = [1] * k.dim()
     shape[cout_axis] = -1
     q = torch.clamp(torch.round(k * inv.reshape(shape)), -127.0, 127.0)

@@ -13,9 +13,13 @@ Any error answers 400 with its message, an unknown path 404. Requests run
 one at a time through a lock (one device) while the IO threads overlap.
 
     python -m plastic_unet_tpu_torch.submit.http_server --model out/train_net.pth [--device cpu]
+    python -m plastic_unet_tpu_torch.submit.http_server --artifact out/artifact [--device cpu]
 
-``--artifact`` (an exported serving artifact) waits for the export slice
-(ROADMAP.md, queue A item 4) and raises.
+``--artifact`` serves an exported artifact (submit.export, written by
+cli.export_model) on ``--device``. The artifact bakes in the views, the
+threshold, the chunk and the model's shape, so ``--tta``, ``--threshold``,
+``--chunk``, ``--nbf``, ``--neurons`` and ``--prule`` are rejected with it,
+as the JAX server rejects them.
 """
 
 from __future__ import annotations
@@ -97,7 +101,8 @@ def build_parser():
     p = argparse.ArgumentParser(description="Serve plastic U-Net mask prediction over HTTP")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--model", help=".pth checkpoint (reference format)")
-    src.add_argument("--artifact", help="exported serving artifact directory (not ported: raises)")
+    src.add_argument("--artifact", help="exported serving artifact directory (cli.export_model); the "
+                     "model-shape/tta/threshold/chunk flags are baked into the artifact and rejected here")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", default=8600, type=int)
     p.add_argument("--nbf", default=101, type=int)
@@ -111,16 +116,26 @@ def build_parser():
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     if args.artifact:
-        raise ValueError("--artifact: plastic_unet_tpu_torch does not have submit/export.py yet "
-                         "(ROADMAP.md, queue A item 4, the export slice); serve a .pth with --model")
-    from plastic_unet_tpu_torch.ops.augment import parse_tta
-    from plastic_unet_tpu_torch.submit.server import MaskPredictor
+        # Serving something other than what was asked for (probabilities where a threshold was
+        # passed) would be silent; the JAX server rejects these flags too.
+        baked = ("tta", "threshold", "chunk", "nbf", "neurons", "prule")
+        passed = [f for f in baked if getattr(args, f) != parser.get_default(f)]
+        if passed:
+            parser.error("--artifact serves the exported configuration; " + ", ".join("--" + f for f in passed)
+                         + " cannot be overridden (re-export with cli.export_model)")
+        from plastic_unet_tpu_torch.submit.export import load_predictor
 
-    predictor = MaskPredictor.from_pth(args.model, nbf=args.nbf, neurons=args.neurons, rule=args.prule,
-                                       tta=parse_tta(args.tta), threshold=args.threshold, chunk=args.chunk,
-                                       device=args.device)
+        predictor = load_predictor(args.artifact, device=args.device)
+    else:
+        from plastic_unet_tpu_torch.ops.augment import parse_tta
+        from plastic_unet_tpu_torch.submit.server import MaskPredictor
+
+        predictor = MaskPredictor.from_pth(args.model, nbf=args.nbf, neurons=args.neurons, rule=args.prule,
+                                           tta=parse_tta(args.tta), threshold=args.threshold, chunk=args.chunk,
+                                           device=args.device)
     serve(predictor, args.host, args.port)
 
 

@@ -50,10 +50,10 @@ def predict_masks_tta(model, X, *, transforms: Sequence[str] = ("identity",), ch
     averaged over the TTA views ``transforms`` after each view's inverse.
     One full chunked pass a view, or with ``batch_views`` the T views folded
     into the batch of one pass of T*N samples. Eval-mode math does not
-    depend on a sample's place in its chunk, so both give the same masks
-    wherever every layer repeats its bits (on the card cuDNN's
-    ConvTranspose may not: ROADMAP.md, C5). Each view is made contiguous
-    before the forward."""
+    depend on a sample's place in its chunk, and every layer repeats its
+    bits (serving_numerics, models.blocks.dense_strides: ROADMAP.md, C5),
+    so both give the same masks. Each view is made contiguous before the
+    forward."""
     if tuple(transforms) == ("identity",):
         return predict_masks(model, X, chunk=chunk, device=device)
     dev = resolve_device(device)

@@ -18,7 +18,7 @@ import torch
 
 from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.eval.evaluate import _as_tensor
-from plastic_unet_tpu_torch.utils.precision import matmul_precision
+from plastic_unet_tpu_torch.utils.precision import serving_numerics
 
 
 def _with_quant(model, mode: str, device):
@@ -43,7 +43,7 @@ def calibrate(model, X_calib, *, chunk: int = 128, device=None) -> dict:
     cmodel = _with_quant(model, "calib", dev)
     for conv in (m for m in cmodel.modules() if "amax" in m._buffers):
         conv.amax = None
-    with torch.inference_mode(), matmul_precision("parity"):
+    with torch.inference_mode(), serving_numerics():
         for lo in range(0, X.shape[0], chunk):
             x = X[lo:lo + chunk]
             cmodel(x, cmodel.initial_zero_hebb(x.shape[0], device=dev))

@@ -16,6 +16,13 @@ the same card differ in the last bits of the entry convs' and transposed
 convs' gradients; with it (and the package's own deterministic kernels) a
 step, eager or replayed from a CUDA graph, gives the same bits every time,
 which exact resume depends on.
+
+:func:`serving_numerics` is the same policy for the serving forward: without
+deterministic cuDNN the ConvTranspose of the deepest UpRes (6x6x256 ->
+13x13x128 at a 128-tile chunk) takes an algorithm whose sums do not repeat
+from run to run, and a chunk's masks differ in the last bits between runs,
+between one pass a TTA view and the views folded into the batch, and
+between an exported program and the live path (ROADMAP.md, C5).
 """
 
 from __future__ import annotations
@@ -52,3 +59,6 @@ def training_numerics():
             yield
     finally:
         torch.backends.cudnn.deterministic = prev
+
+
+serving_numerics = training_numerics  # the serving forward's policy: the same, for the same reason (C5)

@@ -147,3 +147,66 @@ def test_cli_infer_tta_save_int8(trained, tgs_dir, tmp_path):
         png = np.asarray(Image.open(out / "masks" / f"{idx}.png"))
         assert png.shape == (101, 101, 3)
         np.testing.assert_array_equal(png[..., 0] > 0, rle_decode(rle, (101, 101)).astype(bool))
+
+
+def test_cli_export_parser_keeps_every_jax_flag():
+    """cli.export_model keeps the JAX parser's flags, defaults and choices;
+    only --platforms names the port's devices (cpu,cuda for cpu,tpu)."""
+    from plastic_unet_tpu.cli import export_model as jexport_cli
+    from plastic_unet_tpu_torch.cli import export_model as texport_cli
+
+    want, got = _actions(jexport_cli.build_parser()), _actions(texport_cli.build_parser())
+    assert set(want) == set(got)
+    for dest, a in want.items():
+        b = got[dest]
+        assert set(a.option_strings) == set(b.option_strings), dest
+        same = (b.choices, b.type, b.required, type(b)) == (a.choices, a.type, a.required, type(a))
+        assert same and (b.default == a.default or dest == "platforms"), dest
+    assert (want["platforms"].default, got["platforms"].default) == ("cpu,tpu", "cpu,cuda")
+
+
+def test_cli_export_roundtrips(tmp_path):
+    """cli.export_model --platforms cpu: a .pth in, an artifact out whose
+    tta2 masks are within 1.2e-7 of the live TTA on the same weights."""
+    from plastic_unet_tpu_torch.cli import export_model
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.submit.export import load_predictor
+    from plastic_unet_tpu_torch.submit.inference import predict_masks_tta
+
+    model = UNetPRes(nbf=32, neurons=2, generator=torch.Generator().manual_seed(2))
+    pth = str(tmp_path / "m.pth")
+    torch.save(model.state_dict(), pth)
+    out = export_model.main(["--model", pth, "--out", str(tmp_path / "artifact"), "--nbf", "32", "--neurons", "2",
+                             "--chunk", "4", "--tta", "tta2", "--platforms", "cpu"])
+    assert sorted(os.listdir(out)) == ["forward.cpu.pt2", "meta.json"]
+    X = np.random.default_rng(8).standard_normal((5, 32, 32, 1)).astype(np.float32)
+    got = load_predictor(out, device="cpu").predict(X)
+    want = predict_masks_tta(model, X, transforms=("identity", "hflip"), chunk=4, device="cpu").numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1.2e-7)
+
+
+@pytest.mark.parametrize("flags,item", [(["--compute-dtype", "bfloat16"], "A4d"), (["--data-devices", "2"], "A6"),
+                                        (["--arch", "unet"], "A5")], ids=["bfloat16", "data-devices", "unet"])
+def test_cli_export_unported_flags_raise(tmp_path, flags, item):
+    """What the port does not export raises before any work and names its
+    ROADMAP.md queue item."""
+    from plastic_unet_tpu_torch.cli import export_model
+
+    with pytest.raises(ValueError, match=item):
+        export_model.main(["--model", str(tmp_path / "none.pth"), "--out", str(tmp_path / "a"), *flags])
+
+
+def test_cli_export_default_platforms_need_cuda(tmp_path):
+    """--platforms defaults to cpu,cuda: on a host without CUDA it raises
+    rather than writing a CPU program alone."""
+    from plastic_unet_tpu_torch.cli import export_model
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default platforms export")
+    pth = str(tmp_path / "m.pth")
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+
+    torch.save(UNetPRes(nbf=32, neurons=2).state_dict(), pth)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_model.main(["--model", pth, "--out", str(tmp_path / "a"), "--nbf", "32", "--neurons", "2"])
+    assert not os.path.exists(tmp_path / "a")

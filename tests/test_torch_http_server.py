@@ -125,3 +125,78 @@ def test_main_refuses_artifact_and_serves_a_pth_on_cpu(tmp_path, monkeypatch):
     p = seen["p"]
     assert (p.tta, p.threshold, p.device.type, seen["port"]) == (("identity", "hflip", "vflip", "rot180"), 0.4,
                                                                  "cpu", 0)
+
+
+@pytest.fixture(scope="module")
+def artifact_model():
+    return UNetPRes(nbf=SIZE, neurons=2, generator=torch.Generator().manual_seed(1)).eval()
+
+
+def _serve_and_post(predictor, imgs):
+    """(the /predict masks, the /predict_rle strings or the error code, /healthz) of a served predictor."""
+    srv = thttp.serve(predictor, port=0, block=False)
+    try:
+        masks = np.load(io.BytesIO(_post(srv, "/predict", _npy(imgs))[1]), allow_pickle=False)
+        try:
+            rles = json.loads(_post(srv, "/predict_rle", _npy(imgs))[1])
+        except urllib.error.HTTPError as e:
+            rles = e.code
+        with urllib.request.urlopen(_url(srv, "/healthz"), timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return masks, rles, health
+
+
+def test_serve_artifact_equals_the_loaded_predictor(artifact_model, tmp_path):
+    """An exported artifact (tta2, threshold 0.5) served over HTTP: /predict
+    equals the loaded predictor bit for bit, /predict_rle its strings."""
+    from plastic_unet_tpu_torch.submit.export import export_predictor, load_predictor
+
+    path = export_predictor(artifact_model, str(tmp_path / "art"), chunk=4, tta=("identity", "hflip"),
+                            threshold=0.5, platforms=("cpu",))
+    pred = load_predictor(path, device="cpu")
+    imgs = np.random.default_rng(11).standard_normal((5, SIZE, SIZE)).astype(np.float32)
+    masks, rles, health = _serve_and_post(pred, imgs)
+    np.testing.assert_array_equal(masks, pred.predict(imgs).astype(np.float32))
+    assert rles == pred.predict_rle(imgs)
+    assert health == {"status": "ok", "device": "cpu"}
+
+
+def test_serve_int8_artifact(artifact_model, tmp_path):
+    """An int8 artifact served over HTTP equals the live int8 forward bit
+    for bit (as JAX's test_serve_int8_artifact holds)."""
+    from plastic_unet_tpu_torch.eval.evaluate import predict_masks
+    from plastic_unet_tpu_torch.submit.export import export_predictor, load_predictor
+    from plastic_unet_tpu_torch.submit.quant import quantize_for_serving
+
+    qmodel = quantize_for_serving(artifact_model, np.random.default_rng(12).random((8, SIZE, SIZE, 1),
+                                                                                   dtype=np.float32), device="cpu")
+    path = export_predictor(qmodel, str(tmp_path / "int8"), chunk=4, platforms=("cpu",))
+    imgs = np.random.default_rng(13).standard_normal((6, SIZE, SIZE)).astype(np.float32)
+    masks, rles, _ = _serve_and_post(load_predictor(path, device="cpu"), imgs)
+    np.testing.assert_array_equal(masks, predict_masks(qmodel, imgs[..., None], chunk=4, device="cpu").numpy())
+    assert rles == 400  # a probability artifact without a threshold: predict_rle refuses
+
+
+@pytest.mark.parametrize("flag,value", [("--tta", "tta4"), ("--threshold", "0.4"), ("--chunk", "8"),
+                                        ("--nbf", "32"), ("--neurons", "4"), ("--prule", "oja")])
+def test_artifact_rejects_baked_flags(tmp_path, capsys, flag, value):
+    """Flags the artifact bakes in are refused with --artifact (parser.error),
+    as the JAX server refuses them."""
+    with pytest.raises(SystemExit) as e:
+        thttp.main(["--artifact", str(tmp_path), flag, value])
+    assert e.value.code == 2
+    assert flag in capsys.readouterr().err
+
+
+def test_main_serves_an_artifact_on_cpu(artifact_model, tmp_path, monkeypatch):
+    """--artifact loads the artifact on --device and serves it."""
+    from plastic_unet_tpu_torch.submit.export import ExportedPredictor, export_predictor
+
+    path = export_predictor(artifact_model, str(tmp_path / "art"), chunk=4, platforms=("cpu",))
+    seen = {}
+    monkeypatch.setattr(thttp, "serve", lambda p, host, port: seen.update(p=p, port=port))
+    thttp.main(["--artifact", path, "--port", "0", "--device", "cpu"])
+    assert isinstance(seen["p"], ExportedPredictor) and seen["p"].device.type == "cpu" and seen["port"] == 0

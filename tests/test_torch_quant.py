@@ -90,6 +90,20 @@ def test_quantize_act_matches_jax():
     assert q.tolist() == [-127, -127, 0, 127, 127]
 
 
+def test_act_qparams_divide_as_jax():
+    """The scales of 4096 ranges equal JAX's bit for bit and the correctly
+    rounded float32 of the divisions: 127 / amax and amax / 127 divide two
+    tensors (ROADMAP.md, C6), where ``127.0 / t`` would be
+    ``t.reciprocal() * 127`` in torch, an ulp off in 1 of 4 values."""
+    amax = np.random.default_rng(3).random(4096, dtype=np.float32) * 20 + np.float32(1e-3)
+    inv, scale = tq.act_qparams(torch.from_numpy(amax))
+    jinv, jscale = jq.act_qparams(jnp.asarray(amax))
+    np.testing.assert_array_equal(inv.numpy(), np.asarray(jinv))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
+    np.testing.assert_array_equal(inv.numpy(), (127.0 / amax.astype(np.float64)).astype(np.float32))
+    np.testing.assert_array_equal(scale.numpy(), (amax.astype(np.float64) / 127.0).astype(np.float32))
+
+
 @pytest.mark.parametrize("transpose", [False, True], ids=["conv", "convT"])
 def test_quantize_weight_matches_jax(transpose):
     _, k, _, _, tw = _conv_case(2, 1, 3, 5, 6, transpose)

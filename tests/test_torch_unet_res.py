@@ -173,3 +173,25 @@ def test_channel_dropout_contract():
     assert torch.equal(gen.get_state(), state)
     with pytest.raises(ValueError, match="explicit torch.Generator"):
         tblocks.channel_dropout(x, 0.5, training=True)
+
+
+@pytest.mark.parametrize("cin", [1, 3])
+def test_conv_nhwc_reads_values_not_strides(cin):
+    """The same images with the stride numpy's newaxis leaves on a size-1
+    channel dim (0) and with a copy's (1) give the same entry-conv bits: a
+    cuDNN or oneDNN layer picks its algorithm from the strides
+    (ROADMAP.md, C5), so conv_nhwc hands it the strides of a fresh tensor,
+    without a copy."""
+    rng = np.random.default_rng(4)
+    imgs = rng.random((4, 1, 101, 101), dtype=np.float32)
+    if cin == 1:
+        x = torch.from_numpy(np.ascontiguousarray(imgs[:, 0, :, :, None]))  # the channel's stride is 0
+    else:
+        x = torch.from_numpy(rng.random((4, 101, 101, cin), dtype=np.float32))
+    fresh = x.clone(memory_format=torch.contiguous_format)
+    assert fresh.stride() == torch.empty(x.shape).stride()
+    conv = torch.nn.Conv2d(cin, 16, 3, padding=1)
+    with torch.no_grad():
+        assert torch.equal(tblocks.conv_nhwc(conv, x), tblocks.conv_nhwc(conv, fresh))
+    d = tblocks.dense_strides(x)
+    assert d.stride() == fresh.stride() and d.data_ptr() == x.data_ptr() and torch.equal(d, x)
