@@ -18,7 +18,12 @@ is non-zero:
      takes the whole-sample tiles at 25^2, 12^2, 6^2; B=1 splits K across
      blocks from 50^2 down, each such case bit-identical over two runs), and
      at CONV_EDGE_CASES in all three families, each bit-identical over two
-     runs; the residual tail at the five shapes. Tolerance max|diff| <= 1e-4 *
+     runs; the residual tail at the five shapes; the fused tail
+     (csrc/residual_tail.cu, tail_plan's "fused" route) forced at 101^2x16,
+     50^2x32 and the checkpoint's 50^2x16 and 25^2x32, B=128, 3 and 37 (but
+     where the four launches take the split family, whose bits are its own),
+     equal to the four conv3x3 launches bit for bit in out and in the kept
+     pre11, x1, pre21, and under autograd in out and what it saves. Tolerance max|diff| <= 1e-4 *
      max(1, max|ref|): fp32 sums taken in another order over up to 9*256 terms.
      Then the NaN canary (phase_canary): every kernel and family at the level
      shapes, B=128 and B=1, with its inputs inside NaN-filled buffers (16-byte
@@ -34,12 +39,18 @@ is non-zero:
      strings, writes submission.csv for 256 tiles; a full-width predictor
      answers a 128-tile request (the main path of the launch counts).
   5. proof of path: the launch counters of every serving call match one
-     plastic-head launch, 9 residual tails and 36 conv3x3 launches per chunk.
+     plastic-head launch and 9 residual tails per chunk, each tail one fused
+     launch or four conv3x3 launches as tail_plan routes it (chunk_counts:
+     neurons=16 at B=128, 4 fused and 20 conv3x3).
   6. times (CUDA events around each call while the device is kept busy,
      so host issue time is excluded; warm-up excluded; median of 20) at B=128
      and at B=1: each kernel, its plain version, its bound and the cuDNN
      call where one exists (for the head, torch.bmm of its product alone,
-     bmm_ms); serving tiles/s at neurons=16, chunk 128, under deterministic
+     bmm_ms); where the tail takes the fused kernel, also the four conv3x3
+     launches on the same inputs and the fused kernel keeping its three
+     tensors; both tail routes forced at FUSED_TAIL_CHECKS over
+     TAIL_SWEEP_BS (tail_route_sweep: where the fused kernel wins);
+     serving tiles/s at neurons=16, chunk 128, under deterministic
      cuDNN (utils.precision.serving_numerics) and, for the cost, without it.
 
   7. the backward kernels against their plain versions on the card, at the
@@ -105,10 +116,11 @@ is non-zero:
   13. the export path (submit.export) at full width: programs for "cuda" of
      UNetPRes neurons=16, nbf=101 (seeded weights), loaded with the default
      device: the identity artifact at chunk 128 equal to the live
-     predict_masks bit for bit on 512 tiles with 1/9/36 launches a chunk
-     (head/tails/conv3x3); the tta4 artifact at chunk 32 (B=128 in the
+     predict_masks bit for bit on 512 tiles with chunk_counts() launches a
+     chunk (1 head, 9 tails: 4 fused, 20 conv3x3); the tta4 artifact at chunk 32 (B=128 in the
      program) equal to the live folded tta4 bit for bit; the head and
-     conv3x3 at B=1024 against their plain versions, and the tta8 artifact
+     conv3x3 at B=1024 against their plain versions, the fused tail there
+     equal to the four conv3x3 launches, and the tta8 artifact
      at chunk 128 (B=1024) within 1.2e-7 of the live tta8; the int8
      artifact equal to the live int8 forward; HTTP /predict from the tta4
      artifact equal to MaskPredictor(tta4) bit for bit; export and load
@@ -122,7 +134,14 @@ of phase 11, launches_tta8_batched / launches_calib / launches_int8 the
 paths of phase 12, launches_export the identity artifact's 512 tiles in
 phase 13; keys ending in _b1 or _b128 give the same at the other batch size, max_abs_err_all_shapes the largest over every case,
 library_det_ms the library call under deterministic cuDNN, bmm_ms the
-head's product alone as one torch.bmm call.
+head's product alone as one torch.bmm call. The residual_tail entry is
+the fused kernel (csrc/residual_tail.cu) at 101x101x16, B=128: its
+launches are the kernel's own (counter residual_tail_fused; launches_tails
+counts the tails of either route), four_launch_ms the four conv3x3
+launches on the same inputs, keep_ms the fused kernel keeping pre11, x1
+and pre21, the _50 keys the same at 50x50x32; its _b1 keys are the B=1
+tail, which takes the four launches (route_b1); route_sweep holds phase
+6's rows [H, C, B, four ms, fused ms, keep ms, tail_plan's route].
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -150,10 +169,32 @@ CKPT_THRESHOLD, CKPT_IOU = 0.48954822531870534, 0.83125  # JAX package and torch
 B = 128
 LEVELS = [(101, 16), (50, 32), (25, 64), (12, 128), (6, 256)]  # (H=W, C) of the neurons=16 track
 TAILS_PER_CHUNK = {101: 2, 50: 2, 25: 2, 12: 2, 6: 1}  # a DownRes and an UpRes Middle per level; Middle at 6
-HEAD_PER_CHUNK, TAIL_PER_CHUNK, CONV_PER_CHUNK = 1, 9, 36
-COUNTED = ("plastic_head", "residual_tail", "conv3x3", "residual_tail_backward", "conv3x3_dgrad", "conv3x3_wgrad")
-STEP_COUNTS = {"plastic_head": 1, "residual_tail": 9, "conv3x3": 36, "residual_tail_backward": 9,
-               "conv3x3_dgrad": 36, "conv3x3_wgrad": 36}  # per eager training step
+HEAD_PER_CHUNK = 1
+COUNTED = ("plastic_head", "residual_tail", "residual_tail_fused", "conv3x3", "residual_tail_backward",
+           "conv3x3_dgrad", "conv3x3_wgrad")
+STEP_COUNTS = {"plastic_head": 1, "residual_tail": 9, "residual_tail_fused": 0, "conv3x3": 36,
+               "residual_tail_backward": 9, "conv3x3_dgrad": 36, "conv3x3_wgrad": 36}  # per eager training step
+FUSED_TAIL_SHAPES = [(101, 16), (50, 32)]  # the levels tail_plan routes to csrc/residual_tail.cu at B=128
+FUSED_TAIL_BS = (B, 3, 37)  # phase 2: the fused tail == four launches, bit for bit, at these B
+FUSED_TAIL_CHECKS = FUSED_TAIL_SHAPES + [(50, 16), (25, 32)]  # and the epoch-225 checkpoint's (neurons=8) fused levels
+TAIL_SWEEP_BS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 64, 128)  # phase 6: both tail routes timed at these B
+
+
+def chunk_counts(neurons: int = 16, b: int = B) -> dict:
+    """Forward launches of one UNetPRes chunk of b samples: 1 head and 9
+    tails, each tail one launch of the fused kernel or four conv3x3
+    launches, as ops.residual_tail.tail_plan routes its shape."""
+    from plastic_unet_tpu_torch.ops.residual_tail import tail_plan
+
+    fused = sum(TAILS_PER_CHUNK[hw] for i, (hw, _) in enumerate(LEVELS)
+                if tail_plan(b, hw, hw, neurons * 2 ** i).family == "fused")
+    tails = sum(TAILS_PER_CHUNK.values())
+    return {"plastic_head": HEAD_PER_CHUNK, "residual_tail": tails, "residual_tail_fused": fused,
+            "conv3x3": 4 * (tails - fused)}
+
+
+def scaled(counts: dict, k: int) -> dict:
+    return {name: k * v for name, v in counts.items()}
 TRAIN_STEPS, TRAIN_LR, TRAIN_GAMMA, TRAIN_STEP_SIZE = 8, 1e-3, 0.5, 3
 WGRAD_EDGE_CASES = [(3, 13, 7, 40, 24), (5, 6, 6, 256, 256), (2, 101, 101, 16, 16), (8, 101, 101, 16, 16),
                     (2, 9, 9, 6, 10)]  # (B, H, W, Cin, Cout) beyond the level shapes; phase 7
@@ -447,20 +488,67 @@ def phase_kernels(dev):
             check(e <= tol, f"residual_tail B={b} {hw}x{hw}x{c}: max|diff| {e:.3g} > {tol:.3g}")
             errs.note("residual_tail", e, b, hw)
     print(f"[2] residual_tail 5 level shapes, B={B} and B=1: max|diff| {errs.all('residual_tail'):.3g}", flush=True)
+    phase_fused_tail(dev, errs)
     for offset in (4, 1):  # 16-byte aligned, and off it
         phase_canary(dev, offset)
     torch.cuda.synchronize()
     return errs
 
 
+def phase_fused_tail(dev, errs):
+    """The fused tail (csrc/residual_tail.cu, forced at each B) against the four conv3x3 launches at
+    FUSED_TAIL_CHECKS x FUSED_TAIL_BS (where conv3x3_plan takes square tiles or whole samples), bit for
+    bit: out alone, and out with pre11, x1 and pre21 kept; two runs alike; within tolerance of
+    residual_tail_plain. Then residual_tail with autograd (the plan's route at that B): its out and the
+    tensors it saved equal the four launches' bit for bit."""
+    from plastic_unet_tpu_torch.ops import residual_tail as rt
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_plan, hwio
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    for hw, c in FUSED_TAIL_CHECKS:
+        for b in FUSED_TAIL_BS:
+            if conv3x3_plan(b, hw, hw, c, c).family == "split":  # four launches with the split family's own bits
+                continue
+            args, _ = tail_operands(lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale,
+                                    b, hw, c)
+            x0, ws, bs = args[0], args[1::2], args[2::2]
+            ks = [hwio(w) for w in ws]
+            kargs = (x0, ks[0], bs[0], ks[1], bs[1], ks[2], bs[2], ks[3], bs[3])
+            what = f"residual_tail_fused B={b} {hw}^2x{c} {tuple(rt.tail_plan(b, hw, hw, c, family='fused'))}"
+            four = rt.residual_tail_four(*kargs)
+            kept = rt.residual_tail_fused(*kargs, keep=True)
+            alone = rt.residual_tail_fused(*kargs)
+            check(all(bool(torch.equal(a, q)) for a, q in zip(kept, four)),
+                  f"{what}: out, pre11, x1, pre21 differ from the four launches' in some bit")
+            check(alone[1:] == (None, None, None) and bool(torch.equal(alone[0], four[0])),
+                  f"{what}: out without the kept tensors differs from the four launches'")
+            check(bool(torch.equal(rt.residual_tail_fused(*kargs)[0], alone[0])),
+                  f"{what}: two runs differ in some bit")
+            e, tol = max_err(kept[0], rt.residual_tail_plain(*args))
+            check(e <= tol, f"{what}: max|diff| {e:.3g} > {tol:.3g} against the plain version")
+            errs.note("residual_tail", e, b, hw)
+            leaves = [t.clone().requires_grad_() for t in args]
+            out = rt.residual_tail(*leaves)
+            saved = out.grad_fn.saved_tensors
+            check(bool(torch.equal(out, four[0])) and len(saved) == 9
+                  and all(bool(torch.equal(a, q)) for a, q in zip(saved, (x0, *four[1:], four[0], *ks))),
+                  f"{what}: residual_tail under autograd ({rt.tail_plan(b, hw, hw, c).family}) differs from "
+                  f"the four launches in out or in what it saved")
+            print(f"[2] {what}: == four conv3x3 launches bit for bit (out; out, pre11, x1, pre21 kept; under "
+                  f"autograd by the plan's {rt.tail_plan(b, hw, hw, c).family} route), two runs alike, max|diff| "
+                  f"{e:.3g} against the plain version", flush=True)
+            del args, leaves, out, saved, four, kept, alone
+
+
 def phase_canary(dev, offset: int):
     """The NaN canary of every kernel and family at the level shapes, B=128 and B=1 (conv3x3 and its
-    input-gradient form in each family the shape takes, conv3x3_wgrad, the head's families, hebb and
-    oja): inputs inside NaN-filled buffers ``offset`` floats in (1: off 16-byte alignment), outputs in
+    input-gradient form in each family the shape takes, conv3x3_wgrad, the fused residual tail at its
+    two shapes with pre11, x1 and pre21 kept, the head's families, hebb and oja): inputs inside NaN-filled buffers ``offset`` floats in (1: off 16-byte alignment), outputs in
     NaN-filled blocks; each finite and within phase 2's tolerance of the plain version. A kernel
     that reads memory it never wrote, or leaves part of its output unwritten, fails here where two
     launches back to back (the same blocks) would agree. Returns [(kernel, case, max|diff|)]."""
     from plastic_unet_tpu_torch.ops import conv3x3 as c3
+    from plastic_unet_tpu_torch.ops import residual_tail as rt
     from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, conv3x3_wgrad_plain
     from plastic_unet_tpu_torch.ops.plastic_head import FAMILIES, head_plan, plastic_head, plastic_head_plain
 
@@ -500,6 +588,14 @@ def phase_canary(dev, offset: int):
             hold("conv3x3_wgrad", f"B={b} {hw}^2x{c}",
                  canary(conv3x3_wgrad, x, res, relu_in=True, layout="oihw", offset=offset),
                  conv3x3_wgrad_plain(x, res, relu_in=True, layout="oihw"))
+            if (hw, c) in FUSED_TAIL_SHAPES:  # the fused tail, forced at B=1 too, keeping its three tensors
+                args, _ = tail_operands(rnd, b, hw, c)
+                _, pre11, x1, pre21, out = tail_saved(args)
+                kargs = [args[0]] + [c3.hwio(t) if t.dim() == 4 else t for t in args[1:]]
+                hold("residual_tail_fused", f"B={b} {hw}^2x{c}",
+                     canary(rt.residual_tail_fused, *kargs, keep=True, offset=offset),
+                     (out, pre11, x1, pre21))
+                del args, kargs, pre11, x1, pre21, out
         n = 101
         w, alpha, eta = rnd(n, n, scale=0.01), rnd(n, n).abs() * 0.01, torch.full((1,), 0.01, device=dev)
         x, hebb = rnd(b, n, n), rnd(b, n, n, scale=0.1)
@@ -514,7 +610,7 @@ def phase_canary(dev, offset: int):
                      plastic_head_plain(w, alpha, eta, x, hebb, rule=rule))
     torch.cuda.synchronize()
     print(f"[2] NaN canary, inputs {offset} float(s) into NaN-filled buffers, outputs in NaN-filled blocks: "
-          f"{len(lines)} cases (conv3x3 and dgrad in each family, wgrad, the head's families; level shapes, "
+          f"{len(lines)} cases (conv3x3 and dgrad in each family, wgrad, the fused tail, the head's families; level shapes, "
           f"B={B} and B=1) finite and within tolerance, max|diff| {max(e for *_, e in lines):.3g}", flush=True)
     return lines
 
@@ -568,9 +664,10 @@ def counted() -> dict:
     from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dgrad
     from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad
     from plastic_unet_tpu_torch.ops.plastic_head import plastic_head
-    from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_backward
+    from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_backward, residual_tail_fused
 
-    fns = (plastic_head, residual_tail, conv3x3, residual_tail_backward, conv3x3_dgrad, conv3x3_wgrad)
+    fns = (plastic_head, residual_tail, residual_tail_fused, conv3x3, residual_tail_backward, conv3x3_dgrad,
+           conv3x3_wgrad)
     return dict(zip(COUNTED, fns))
 
 
@@ -583,12 +680,11 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in counted().items()}
 
 
-def expect_counts(label: str, chunks: int) -> dict:
-    """Serving: forward launches per chunk, and no backward launch at all."""
+def expect_counts(label: str, chunks: int, neurons: int = 16) -> dict:
+    """Serving: forward launches per chunk of B (chunk_counts), and no backward launch at all."""
     counts = read_counts()
     want = dict.fromkeys(COUNTED, 0)
-    want.update({"plastic_head": HEAD_PER_CHUNK * chunks, "residual_tail": TAIL_PER_CHUNK * chunks,
-                 "conv3x3": CONV_PER_CHUNK * chunks})
+    want.update(scaled(chunk_counts(neurons), chunks))
     check(counts == want, f"{label}: launches {counts} != {want} for {chunks} chunk(s)")
     print(f"[5] {label}: launches {({k: v for k, v in counts.items() if v})} ({chunks} chunk(s))", flush=True)
     return counts
@@ -608,7 +704,7 @@ def phase_serving(dev):
     pred = MaskPredictor.from_pth(CKPT, neurons=8, rule="oja", key="model").warmup()
     reset_counts()
     thr, iou = score_model_best_iou(pred.model, xv, yv)
-    expect_counts("score_model_best_iou, 64 tiles", 1)
+    expect_counts("score_model_best_iou, 64 tiles", 1, 8)
     print(f"[4] epoch-225 checkpoint on the 64 hard validation tiles: best threshold {thr!r}, "
           f"best IoU {iou!r}", flush=True)
     check(abs(thr - CKPT_THRESHOLD) <= 1e-6, f"best threshold {thr} != {CKPT_THRESHOLD}")
@@ -619,7 +715,7 @@ def phase_serving(dev):
     for n in (1, 37, 128):
         reset_counts()
         rles = pred.predict_rle(tiles[:n], threshold=thr)
-        expect_counts(f"predict_rle {n} tiles", 1)
+        expect_counts(f"predict_rle {n} tiles", 1, 8)
         check(len(rles) == n and all(isinstance(r, str) for r in rles), f"predict_rle {n}: bad result")
         if n == 37:  # hold the request against the CPU port on the same tiles
             card = pred.predict_probs(tiles[:n]).cpu()
@@ -639,7 +735,7 @@ def phase_serving(dev):
               "mask_threshold": thr, "subm_file": "submission.csv"}
         reset_counts()
         path = predict(pred.model, ids, tiles, rp)
-        expect_counts("predict 256 tiles -> submission.csv", 2)
+        expect_counts("predict 256 tiles -> submission.csv", 2, 8)
         lines = open(path).read().splitlines()
         check(lines[0] == "id,rle_mask" and len(lines) == 257, "submission.csv: bad header or row count")
         check([ln.split(",")[0] for ln in lines[1:]] == ids, "submission.csv: ids out of order")
@@ -823,11 +919,39 @@ def phase_backward_kernels(dev):
 
 # --------------------------------------------------------------------------- phase 6
 
+def tail_route_sweep(rnd) -> list:
+    """Both tail routes, forced, at FUSED_TAIL_CHECKS x TAIL_SWEEP_BS where the fused kernel may run
+    (conv3x3_plan's square tiles): rows (H, C, B, four ms, fused ms, fused keeping pre11/x1/pre21 ms,
+    tail_plan's route), printed with the faster route; the evidence tail_plan's rule is set from."""
+    from plastic_unet_tpu_torch.ops import residual_tail as rt
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_plan, hwio
+
+    rows = []
+    for hw, c in FUSED_TAIL_CHECKS:
+        for b in TAIL_SWEEP_BS:
+            if conv3x3_plan(b, hw, hw, c, c).family != "tile":
+                continue
+            args, _ = tail_operands(rnd, b, hw, c)
+            ks = [hwio(t) for t in args[1::2]]
+            kargs = (args[0], ks[0], args[2], ks[1], args[4], ks[2], args[6], ks[3], args[8])
+            four = time_ms(lambda: rt.residual_tail_four(*kargs))[0]
+            fused = time_ms(lambda: rt.residual_tail_fused(*kargs))[0]
+            keep = time_ms(lambda: rt.residual_tail_fused(*kargs, keep=True))[0]
+            route = rt.tail_plan(b, hw, hw, c).family
+            rows.append([hw, c, b, four, fused, keep, route])
+            faster = "fused" if fused < four else "four"
+            print(f"[6] tail routes {hw}x{hw}x{c} B={b}: four launches {four:.4f} ms, fused {fused:.4f} ms "
+                  f"(keeping {keep:.4f}), faster {faster}, tail_plan {route}", flush=True)
+            del args, ks, kargs
+    return rows
+
+
 def phase_times(dev, name, full, main_counts, errs):
     import torch.nn.functional as F
 
     from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, hwio
     from plastic_unet_tpu_torch.ops.plastic_head import head_plan, plastic_head, plastic_head_plain
+    from plastic_unet_tpu_torch.ops import residual_tail as rt
     from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_plain
     from plastic_unet_tpu_torch.utils.precision import matmul_precision
 
@@ -884,11 +1008,25 @@ def phase_times(dev, name, full, main_counts, errs):
                 )
                 tail["bound_ms"], tail["bound_by"] = bound_ms(
                     4 * 2 * 9 * c * c * b * hw * hw, 4 * (2 * b * hw * hw * c + 4 * (9 * c * c + c)), pk)
+                plan = rt.tail_plan(b, hw, hw, c)
+                tail["route"] = plan.family
+                if plan.family == "fused":  # the other route on the same inputs: four conv3x3 launches
+                    ks = [hwio(t) for t in wt]
+                    kargs = (xx, ks[0], bs[0], ks[1], bs[1], ks[2], bs[2], ks[3], bs[3])
+                    tail["four_ms"] = time_ms(lambda: rt.residual_tail_four(*kargs))[0]
+                    tail["keep_ms"] = time_ms(lambda: rt.residual_tail_fused(*kargs, keep=True))[0]
                 for kname, d in (("conv3x3", conv), ("residual_tail", tail)):
-                    print(f"[6] {kname} {hw}x{hw}x{c} B={b}: kernel {d['ms']:.4f} ms, plain {d['plain_ms']:.4f} ms, "
+                    route = "" if kname == "conv3x3" else f" [{d['route']}]"
+                    print(f"[6] {kname} {hw}x{hw}x{c} B={b}{route}: kernel {d['ms']:.4f} ms, plain {d['plain_ms']:.4f} ms, "
                           f"cuDNN {d['cudnn_ms']:.4f} ms, bound {d['bound_ms']:.5f} ms ({d['bound_by']}), "
                           f"{d['bound_ms'] / d['ms']:.1%} of bound", flush=True)
                     table[(kname, b, hw)] = d
+                if "four_ms" in tail:
+                    print(f"[6] residual_tail {hw}x{hw}x{c} B={b}: fused {tail['ms']:.4f} ms ({tuple(plan)}; "
+                          f"keeping pre11, x1, pre21 {tail['keep_ms']:.4f} ms) "
+                          f"against four conv3x3 launches {tail['four_ms']:.4f} ms: {tail['four_ms'] / tail['ms']:.3f}x",
+                          flush=True)
+        table["tail_sweep"] = tail_route_sweep(rnd)
     tails_ms = sum(TAILS_PER_CHUNK[hw] * table[("residual_tail", B, hw)]["ms"] for hw, _ in LEVELS)
 
     xs = np.random.default_rng(2).random((4 * B, 101, 101), dtype=np.float32)
@@ -931,7 +1069,7 @@ def phase_times(dev, name, full, main_counts, errs):
         "plastic_head": ("plastic_unet_tpu_torch/csrc/plastic_head.cu",
                          "plastic_unet_tpu/ops/pallas_plastic.py:40"),
         "conv3x3": ("plastic_unet_tpu_torch/csrc/conv3x3.cu", "plastic_unet_tpu/ops/pallas_conv.py:81"),
-        "residual_tail": ("plastic_unet_tpu_torch/ops/residual_tail.py",
+        "residual_tail": ("plastic_unet_tpu_torch/csrc/residual_tail.cu",
                           "plastic_unet_tpu/ops/pallas_trunk.py:215"),
     }
     kernels = []
@@ -950,6 +1088,16 @@ def phase_times(dev, name, full, main_counts, errs):
                       "max_abs_err_b1": errs.at(kname, 1), "max_abs_err_all_shapes": errs.all(kname)})
         if kname == "plastic_head":
             entry.update({"bmm_ms": many["bmm_ms"], "bmm_ms_b1": one["bmm_ms"]})
+        if kname == "residual_tail":  # the fused kernel's own launches; the tails of the path, either route
+            other = table[(kname, B, 50)]
+            entry.update({"counter": "residual_tail_fused", "launches": main_counts["residual_tail_fused"],
+                          "launches_tails": main_counts["residual_tail"],
+                          "route_b128": many["route"], "route_b1": one["route"], "four_launch_ms": many["four_ms"],
+                          "keep_ms": many["keep_ms"], "ms_50": other["ms"], "four_launch_ms_50": other["four_ms"],
+                          "keep_ms_50": other["keep_ms"], "plain_ms_50": other["plain_ms"],
+                          "bound_ms_50": other["bound_ms"], "cudnn_ms_50": other["cudnn_ms"],
+                          "max_abs_err_50": errs.at(kname, B, 50),
+                          "route_sweep": table["tail_sweep"]})
         kernels.append(entry)
     return kernels, table
 
@@ -1293,7 +1441,7 @@ def phase_driver(dev, smi, graph_step_s):
         # the graph is captured once (2 warm-up steps and the capture launch the kernels; replays go
         # through no wrapper) and each of the 2 validations runs one 128-tile chunk
         want = {k: 3 * v for k, v in STEP_COUNTS.items()}
-        for k, v in {"plastic_head": HEAD_PER_CHUNK, "residual_tail": TAIL_PER_CHUNK, "conv3x3": CONV_PER_CHUNK}.items():
+        for k, v in chunk_counts().items():
             want[k] += 2 * v
         check(counts == want, f"driver launches {counts} != {want}")
         print(f"[11] MAIN PATH (driver): cli.train neurons=16, 4 epochs of 32 tiles, dropout 0.5, shuffle, augment, "
@@ -1531,8 +1679,7 @@ def phase_serving_features(dev, smi):
         torch.cuda.synchronize()
         counts[f"tta8_{label}"] = expect_launches(
             f"MAIN PATH (tta8 {label}, {SERVE_TILES} tiles = {len(TTA_VIEWS_8) * chunks} chunks)",
-            {"plastic_head": HEAD_PER_CHUNK * 8 * chunks, "residual_tail": TAIL_PER_CHUNK * 8 * chunks,
-             "conv3x3": CONV_PER_CHUNK * 8 * chunks})
+            scaled(chunk_counts(), 8 * chunks))
     if not torch.equal(outs["batched"], outs["sequential"]):
         # The chunks hold the same samples at the same places either way (SERVE_TILES is a multiple of B),
         # so a difference is a layer whose bits depend on more than its input's values. Name it, then fail.
@@ -1570,8 +1717,7 @@ def phase_serving_features(dev, smi):
     ident = predict_masks(model, X[:B], device=dev)
     reset_counts()
     singles = [inference(model, tiles[i], device=dev) for i in range(3)]
-    counts["inference_3"] = expect_launches("inference(), 3 single images (B=1 plans)",
-                                            {"plastic_head": 3, "residual_tail": 27, "conv3x3": 108})
+    counts["inference_3"] = expect_launches("inference(), 3 single images (B=1 plans)", scaled(chunk_counts(b=1), 3))
     e = max(float(np.abs(s_ - ident[i].cpu().numpy()).max()) for i, s_ in enumerate(singles))
     check(all(np.allclose(s_, ident[i].cpu().numpy(), rtol=SERVE_RTOL, atol=SERVE_ATOL) for i, s_ in enumerate(singles)),
           f"inference() vs the chunked path max|diff| {e:.3g}")
@@ -1610,9 +1756,7 @@ def phase_serving_features(dev, smi):
     calib_s = time.perf_counter() - t0
     calib_chunks = CALIB_TILES // B
     counts["calib"] = expect_launches(
-        f"calibration, {CALIB_TILES} tiles", {"plastic_head": HEAD_PER_CHUNK * calib_chunks,
-                                              "residual_tail": TAIL_PER_CHUNK * calib_chunks,
-                                              "conv3x3": CONV_PER_CHUNK * calib_chunks})
+        f"calibration, {CALIB_TILES} tiles", scaled(chunk_counts(), calib_chunks))
     ranges = qmodel.quant_ranges()
     check(len(ranges) == 49 and all(bool(torch.isfinite(r)) and float(r) >= 0 for r in ranges.values()),
           f"calibration: {len(ranges)} ranges, want 49, finite and >= 0")
@@ -1679,8 +1823,7 @@ def phase_serving_features(dev, smi):
         body = buf.getvalue()
         reset_counts()
         got = np.load(io.BytesIO(post("/predict", body)), allow_pickle=False)
-        counts["http_predict"] = expect_launches(f"HTTP /predict, {B} tiles, tta4", {
-            "plastic_head": HEAD_PER_CHUNK * 4, "residual_tail": TAIL_PER_CHUNK * 4, "conv3x3": CONV_PER_CHUNK * 4})
+        counts["http_predict"] = expect_launches(f"HTTP /predict, {B} tiles, tta4", scaled(chunk_counts(), 4))
         want = predictor.predict(tiles[:B, :, :, 0])
         check(got.dtype == np.float32 and np.array_equal(got, want.astype(np.float32)),
               "HTTP /predict differs from predictor.predict")
@@ -1739,6 +1882,8 @@ def phase_export(dev, smi, live_rate):
     from plastic_unet_tpu_torch.ops.augment import TTA_VIEWS_4, TTA_VIEWS_8
     from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, hwio
     from plastic_unet_tpu_torch.ops.plastic_head import head_plan, plastic_head, plastic_head_plain
+    from plastic_unet_tpu_torch.ops.residual_tail import residual_tail_four, residual_tail_fused
+    from plastic_unet_tpu_torch.ops.residual_tail import tail_plan as residual_tail_plan
     from plastic_unet_tpu_torch.submit.export import export_predictor, load_predictor
     from plastic_unet_tpu_torch.submit.http_server import serve
     from plastic_unet_tpu_torch.submit.inference import predict_masks_tta
@@ -1770,9 +1915,7 @@ def phase_export(dev, smi, live_rate):
         got = ident.predict(tiles)
         torch.cuda.synchronize()
         counts = expect_launches(f"MAIN PATH (export): the identity artifact, chunk {B}, {SERVE_TILES} tiles = "
-                                 f"{chunks} chunks", {"plastic_head": HEAD_PER_CHUNK * chunks,
-                                                      "residual_tail": TAIL_PER_CHUNK * chunks,
-                                                      "conv3x3": CONV_PER_CHUNK * chunks}, 13)
+                                 f"{chunks} chunks", scaled(chunk_counts(), chunks), 13)
         want = predict_masks(model, X, device=dev).cpu().numpy()
         check(got.dtype == np.float32 and got.shape == (SERVE_TILES, 101, 101) and np.isfinite(got).all(),
               "identity artifact: bad masks")
@@ -1812,8 +1955,18 @@ def phase_export(dev, smi, live_rate):
             check(e <= tol, f"conv3x3 B={big} {hw}^2x{c}: max|diff| {e:.3g} > {tol:.3g}")
             errs_big.append(round(e, 9))
             del xx, res
+        for hw, c in FUSED_TAIL_SHAPES:  # the tail's route there: the fused kernel, with size_t offsets
+            args, _ = tail_operands(lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale,
+                                    big, hw, c)
+            kargs = [args[0]] + [hwio(t) if t.dim() == 4 else t for t in args[1:]]
+            check(residual_tail_plan(big, hw, hw, c).family == "fused", f"tail at B={big} {hw}^2x{c}: not fused")
+            fused = residual_tail_fused(*kargs)[0]
+            check(bool(torch.isfinite(fused).all()) and bool(torch.equal(fused, residual_tail_four(*kargs)[0])),
+                  f"residual_tail_fused B={big} {hw}^2x{c}: differs from the four conv3x3 launches")
+            del args, kargs, fused
         print(f"[13] B={big} (tta8 at chunk {B}): plastic_head ({head_plan(big, n).family}) and conv3x3 at the five "
-              f"level shapes within tolerance of their plain versions (conv max|diff| {errs_big})", flush=True)
+              f"level shapes within tolerance of their plain versions (conv max|diff| {errs_big}); the fused tail "
+              f"at {FUSED_TAIL_SHAPES} (H, C) == four conv3x3 launches bit for bit", flush=True)
         tta8 = exported("tta8", model, tmp, tta=TTA_VIEWS_8)
         got = tta8.predict(tiles)
         want = predict_masks_tta(model, X, transforms=TTA_VIEWS_8, batch_views=True, device=dev).cpu().numpy()
@@ -1956,19 +2109,19 @@ def main() -> int:
         bwd_errs = phase_backward_kernels(dev)
     step_counts = phase_training(dev)
     for entry in kernels:  # the serving kernels are on the training path too
-        entry["launches_train_step"] = step_counts[entry["name"]]
+        entry["launches_train_step"] = step_counts[entry.get("counter", entry["name"])]
     more, graph_step_s = phase_training_times(dev, name, bwd_errs, step_counts, fwd_table)
     kernels += more
     driver_counts = phase_driver(dev, smi, graph_step_s)
     for entry in kernels:  # launches of the driver's first run (phase 11)
-        entry["launches_driver"] = driver_counts[entry["name"]]
+        entry["launches_driver"] = driver_counts[entry.get("counter", entry["name"])]
     serving_counts = phase_serving_features(dev, smi)
     for entry in kernels:  # launches of phase 12's paths
         for path in ("tta8_batched", "calib", "int8"):
-            entry[f"launches_{path}"] = serving_counts[path][entry["name"]]
+            entry[f"launches_{path}"] = serving_counts[path][entry.get("counter", entry["name"])]
     export_counts = phase_export(dev, smi, fwd_table["serving_tiles_s"])
     for entry in kernels:  # launches of phase 13's identity artifact
-        entry["launches_export"] = export_counts[entry["name"]]
+        entry["launches_export"] = export_counts[entry.get("counter", entry["name"])]
     print(f"[done] {time.time() - t0:.1f}s; card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the plastic head, the conv3x3, conv3x3_dgrad and conv3x3_wgrad kernels and the serving path of several
-checkouts of this repository on one CUDA card, one after the other in one run:
+"""Time the plastic head, the conv3x3, conv3x3_dgrad and conv3x3_wgrad kernels, the forward residual tail and the
+serving path of several checkouts of this repository on one CUDA card, one after the other in one run:
 
     mkdir -p build/parent && git archive HEAD plastic_unet_tpu_torch | tar -x -C build/parent
     python3 kernel_ab.py build/parent . . build/parent
@@ -19,7 +19,10 @@ three outputs), one conv3x3 launch, one
 conv3x3_dgrad launch (with in_gate and gate, as the tail's backward first
 calls it) and one conv3x3_wgrad call (ReLU on load, torch layout, as the
 tail's backward calls it; its second stage included) at the five UNetPRes
-level shapes, B=1 and B=128, and the serving rate of the neurons=16
+level shapes, B=1 and B=128, the forward residual tail at the five level
+shapes, B=128, by the checkout's route (four conv3x3 launches, or the fused
+kernel where its tail_plan says so; with a digest of out: the fused kernel
+keeps the four launches' bits, so the digests must match), and the serving rate of the neurons=16
 predictor on 4 chunks of 128 tiles (host clock, median of 3). Each conv3x3
 and dgrad line ends with a digest of the output bytes (for dgrad, of the
 output and the masked input) from inputs seeded by the shape: equal digests
@@ -171,6 +174,17 @@ def time_checkout(label: str) -> int:
                 x, d = rnd(b, hw, hw, c), rnd(b, hw, hw, c)
                 ms = time_ms(lambda: conv3x3_wgrad(x, d, relu_in=True, layout="oihw"))[0]
                 print(f"[{label}] conv3x3_wgrad B={b} {hw}x{hw}x{c}: {ms:.4f} ms", flush=True)
+        from plastic_unet_tpu_torch.ops import residual_tail as tail_mod
+
+        for hw, c in LEVELS:  # the forward tail by the checkout's route (four conv3x3 launches, or fused)
+            gen.manual_seed(1000 * hw + B + 2)
+            args = [rnd(B, hw, hw, c)]
+            for _ in range(4):
+                args += [rnd(c, c, 3, 3) * (0.5 / (3 * c ** 0.5)), rnd(c) * 0.1]
+            ms = time_ms(lambda: tail_mod.residual_tail(*args))[0]
+            route = tail_mod.tail_plan(B, hw, hw, c).family if hasattr(tail_mod, "tail_plan") else "four"
+            print(f"[{label}] residual_tail B={B} {hw}x{hw}x{c} ({route}): {ms:.4f} ms digest "
+                  f"{digest(tail_mod.residual_tail(*args))}", flush=True)
     model = UNetPRes(neurons=16, nbf=101, rule="oja", generator=torch.Generator().manual_seed(0))
     pred = MaskPredictor(model, threshold=0.5).warmup()
     xs = np.random.default_rng(2).random((4 * B, 101, 101), dtype=np.float32)

@@ -23,7 +23,8 @@ Module paths mirror the JAX package, so each module has its counterpart:
     passes of ops.pallas_trunk's backward
   - ops.conv3x3_wgrad (csrc/conv3x3_wgrad.cu) <-> the weight- and
     bias-gradient passes of ops.pallas_trunk's backward
-  - ops.residual_tail             <-> ops.pallas_trunk (forward and backward)
+  - ops.residual_tail (csrc/residual_tail.cu, and the conv3x3 kernels)
+    <-> ops.pallas_trunk (forward and backward)
   - train.loop, train.optimizer   <-> plastic_unet_tpu.train.loop, .optimizer
   - train.driver, train.checkpoint, config, cli.{train,eval,infer,tuned_run}
     <-> their namesakes (the resume-state file replaces the Orbax state)

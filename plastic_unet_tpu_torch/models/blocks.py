@@ -8,8 +8,9 @@ reproduce the reference state_dict keys (``dconv.0``, ``dconv.1.conv.1.conv``,
 Where the JAX package leaves a conv to XLA, the port leaves it to cuDNN (in
 parity precision): each level's entry conv (Cin != C), the ConvTranspose and
 the 1x1 outconv, through a channels_last NCHW view of the NHWC tensor. The
-3x3 convs of every residual tail run on the conv3x3 kernel through
-ops.residual_tail, forward and backward (while torch.export traces the
+3x3 convs of every residual tail run through ops.residual_tail (forward:
+the fused tail kernel or the conv3x3 kernel, by its tail_plan; backward: the
+conv3x3 and conv3x3_wgrad kernels) (while torch.export traces the
 forward, through the same launches as the custom op of ops.export_ops); the
 cuDNN layers, pool, pad, cat and dropout differentiate through autograd.
 Weights and biases take the torch-default init (U(-1/sqrt(fan_in),

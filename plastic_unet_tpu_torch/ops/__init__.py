@@ -1,2 +1,2 @@
-"""Ops of the port. The CUDA kernels (plastic_head, conv3x3 and the
-residual_tail built on it) are built from ``csrc/`` on first launch only."""
+"""Ops of the port. The CUDA kernels (plastic_head, conv3x3, conv3x3_wgrad
+and residual_tail's fused forward) are built from ``csrc/`` on first launch only."""

@@ -10,13 +10,16 @@ what the eager path calls, with a fake kernel that gives the output's shape:
     forward (one launch of ``csrc/plastic_head.cu`` with its ``head_plan`` on
     CUDA tensors, the plain head on CPU tensors);
   - ``plastic_unet_tpu_torch::residual_tail_forward``: ops.residual_tail's
-    forward (four ``conv3x3`` launches on CUDA tensors, the plain chain on
-    CPU tensors).
+    forward (on CUDA tensors one launch of ``csrc/residual_tail.cu`` or four
+    ``conv3x3`` launches, by its ``tail_plan``; the plain chain on CPU
+    tensors).
 
-They are the only kernels the serving forward launches: its 36 ``conv3x3``
-launches a chunk all come from the 9 tails. Each op counts on its wrapper's
-counter (``plastic_head.launches``, ``residual_tail.launches`` and, inside
-the tail, ``conv3x3.launches``), as the eager path does. models.blocks and
+They are the only kernels the serving forward launches: each of its 9 tails
+a chunk is one launch of the fused tail kernel or four ``conv3x3`` launches,
+as ops.residual_tail.tail_plan routes its shape. Each op counts on its
+wrapper's counter (``plastic_head.launches``, ``residual_tail.launches`` and,
+inside the tail, ``residual_tail_fused.launches`` or ``conv3x3.launches``), as
+the eager path does. models.blocks and
 models.unet_res call these ops only while ``torch.compiler.is_exporting()``
 is true, so the eager path, the CUDA-graph training step and their bits are
 unchanged. Importing this module registers the ops; a process that loads an

@@ -10,21 +10,30 @@ residual blocks and a ReLU, with the reference's inplace-ReLU skip quirk
     h2 = relu(x1);  x2 = conv(relu(conv(h2))) + h2
     out = relu(x2)
 
-Forward. On CUDA tensors :func:`residual_tail` runs this as four launches of
-the conv3x3 kernel, every ReLU, bias and skip fused into their loads and
-epilogues, with no elementwise pass in between:
+Forward. On CUDA tensors :func:`residual_tail` runs this in one of two
+routes, which :func:`tail_plan` picks from the shapes alone. Batches at
+101^2 x 16 from 7 samples and 50^2 x 32 from 10 (where conv3x3_plan takes its
+square tiles and the batch's pixels fill 35% of the fused kernel's threads
+on the card) take one launch of ``csrc/residual_tail.cu``
+(:func:`residual_tail_fused`): a thread-block cluster a sample, a band of rows
+a block, the intermediates in shared memory and the halo rows passed between
+the bands over distributed shared memory. Everything else takes four
+launches of the conv3x3 kernel, every ReLU, bias and skip fused into their
+loads and epilogues:
 
     pre11 = conv(relu(x0)) + b11
     x1    = conv(relu(pre11)) + b12 + relu(x0)
     pre21 = conv(relu(x1)) + b21
     out   = relu(conv(relu(pre21)) + b22 + relu(x1))
 
-pre11, x1 and pre21 go to device memory because the next launch reads them,
-and when autograd tracks an input they are kept for the backward together
-with x0 and ``out``. The TPU kernel saves x2; the port never materialises it
-(the last launch fuses the ReLU) and needs only its sign:
-``(out > 0) == (x2 > 0)``, so ``out`` stands in. Under ``torch.no_grad()``
-or ``inference_mode()`` nothing is kept.
+The fused kernel keeps the square tiles' order of arithmetic for every
+output, so the two routes give the same bits. In the four launches pre11, x1
+and pre21 go to device memory because the next launch reads them; the fused
+kernel writes them only when autograd will save them for the backward
+(together with x0 and ``out``) or the int8 calibration reads their ranges.
+The TPU kernel saves x2; the port never materialises it (the last conv fuses
+the ReLU) and needs only its sign: ``(out > 0) == (x2 > 0)``, so ``out``
+stands in. Under ``torch.no_grad()`` or ``inference_mode()`` nothing is kept.
 
 Backward (:func:`residual_tail_backward`). The reverse chain as four launches
 of the conv3x3 kernel in its input-gradient form (ops.conv3x3.conv3x3_dgrad)
@@ -44,22 +53,104 @@ mask, because three later passes read it; the ReLUs of the wgrad inputs are
 applied on load. Weight gradients come back in torch layout (C, C, 3, 3).
 
 The TPU layout devices (pack_factor, worth_fusing, 128-lane padding) are not
-carried over: every width takes this path. Keeping the intermediates on chip
-in one halo-tiled kernel, the point of the TPU design, is later work.
+carried over. The backward keeps its eight launches at every shape.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
+from plastic_unet_tpu_torch.ops import _build
 from plastic_unet_tpu_torch.ops.conv3x3 import (
+    NUM_SMS,
+    SMEM_MAX,
+    SPLIT_MAX_KS,
     conv3x3,
     conv3x3_dgrad,
     conv3x3_dgrad_plain,
     conv3x3_plain,
+    conv3x3_plan,
     hwio,
 )
 from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, conv3x3_wgrad_plain
+
+_V, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"residual_tail_forward": [_V] * 13 + [_I] * 9 + [_V]}
+# channels -> (pixels a thread, threads a block) of the kernel's tiling for them; a thread's 16 output
+# channels and the 16-channel input slices are fixed. Each was the fastest of a sweep at B=128 (PERF.md).
+FUSED_TILING = {16: (4, 384), 32: (4, 256)}
+TAIL_FAMILIES = ("four", "fused")
+# The fused route from a batch whose pixels fill this share of the card's pixel slots on (NUM_SMS blocks,
+# one an SM, each holding px * threads // (C // 16) pixels). In chip_smoke.py phase 6's sweep of both routes
+# (tail_route_sweep; PERF.md) the four launches were faster up to 0.30 at 101^2 x 16, 50^2 x 32, 50^2 x 16
+# and 25^2 x 32, the fused kernel from 0.40 on, but for a nearly empty second wave (1-2%).
+FUSED_MIN_FILL = 0.35
+
+
+class TailPlan(NamedTuple):
+    """How the forward tail runs. ``family`` "four": four conv3x3 launches
+    (each with its own conv3x3_plan; the other fields 0). "fused": one launch
+    of ``csrc/residual_tail.cu``, ``bands`` blocks a sample (one cluster, at
+    most 16), band k holding rows [k*H//bands, (k+1)*H//bands), at most
+    ``rows`` of them; ``threads`` threads of ``px`` pixels x 16 channels;
+    ``smem`` bytes of dynamic shared memory a block (two band buffers of
+    rows + 2 rows of W + 1 slots of C + 1 floats, and two stages of a
+    16-channel weight slice); ``blocks`` the grid's."""
+
+    family: str
+    bands: int = 0
+    rows: int = 0
+    px: int = 0
+    threads: int = 0
+    smem: int = 0
+    blocks: int = 0
+
+
+def _slots(px: int, threads: int, c: int) -> int:
+    """The pixels a fused block's threads hold (each thread px pixels x 16 of the C channels)."""
+    return px * threads // (c // 16)
+
+
+def _fused_plan(b, h, w, c, bands) -> TailPlan | None:
+    if c not in FUSED_TILING or not 1 <= bands <= min(h, SPLIT_MAX_KS):
+        return None
+    px, threads = FUSED_TILING[c]
+    rows = -(-h // bands)
+    if rows * w > _slots(px, threads, c):  # the band's pixels on the thread grid
+        return None
+    band = (((rows + 2) * (w + 1) + 1) * (c + 1) + 3) // 4 * 4
+    smem = 4 * (2 * band + 2 * 9 * 16 * c)
+    if smem > SMEM_MAX:
+        return None
+    return TailPlan("fused", bands, rows, px, threads, smem, b * bands)
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of its arguments, asked at every tail
+def tail_plan(b: int, h: int, w: int, c: int, *, family: str | None = None) -> TailPlan:
+    """The forward tail's route for x0 (B, H, W, C); depends on the shapes
+    only. The fused kernel where conv3x3_plan(b, h, w, c, c) takes its
+    square tiles, a tiling fits shared memory (the fewest bands whose rows
+    fit the thread grid) and the batch's B*H*W pixels fill at least
+    FUSED_MIN_FILL of the card's pixel slots: 101^2 x 16 from B=7, 50^2 x 32
+    from B=10, 50^2 x 16 from B=29, 25^2 x 32 from B=38; everything else the
+    four launches. ``family`` forces a route; both routes give the same
+    bits."""
+    if family not in (None,) + TAIL_FAMILIES:
+        raise ValueError(f"tail_plan: family must be one of {TAIL_FAMILIES}, got {family!r}")
+    if family == "four":
+        return TailPlan("four")
+    fused = next((p for n in range(1, SPLIT_MAX_KS + 1) if (p := _fused_plan(b, h, w, c, n))), None)
+    if family == "fused":
+        if fused is None:
+            raise ValueError(f"tail_plan: no fused tiling for {(b, h, w, c)}")
+        return fused
+    take = (fused is not None and b * h * w >= FUSED_MIN_FILL * NUM_SMS * _slots(fused.px, fused.threads, c)
+            and conv3x3_plan(b, h, w, c, c).family == "tile")
+    return fused if take else TailPlan("four")
 
 
 def residual_tail_plain(x0, w11, b11, w12, b12, w21, b21, w22, b22):
@@ -119,13 +210,67 @@ def residual_tail_backward(g, x0, pre11, x1, pre21, out, k11, k12, k21, k22):
     return res
 
 
-def _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22):
-    """(out, (x0, pre11, x1, pre21), the (3, 3, C, C) weights): the four
-    conv3x3 launches, or their plain versions for CPU tensors."""
+def _launch_fused(x0, ks, bs, keep):
+    """Check the operands, launch the fused kernel, return (out, pre11, x1, pre21)."""
+    if x0.dim() != 4:
+        raise ValueError(f"residual_tail_fused: x0 must be (B, H, W, C), got {tuple(x0.shape)}")
+    b, h, w, c = x0.shape
+    for t, shape in [(x0, (b, h, w, c))] + [(k, (3, 3, c, c)) for k in ks] + [(t, (c,)) for t in bs]:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"residual_tail_fused: an operand is {tuple(t.shape)}, want {shape}")
+        if t.dtype != torch.float32 or t.device != x0.device or not t.is_contiguous():
+            raise ValueError("residual_tail_fused: inputs must be contiguous float32 on one CUDA device")
+    p = tail_plan(b, h, w, c, family="fused")
+    if b * p.bands > 2 ** 31 - 1:
+        raise ValueError(f"residual_tail_fused: unsupported batch {b}")
+    out = torch.empty_like(x0)
+    kept = [torch.empty_like(x0) if keep else None for _ in range(3)]
+    lib = _build.library("residual_tail", _SIGNATURES)
+    with torch.cuda.device(x0.device):
+        code = lib.residual_tail_forward(
+            _build.ptr(x0), *(_build.ptr(t) for pair in zip(ks, bs) for t in pair), _build.ptr(out),
+            *(_build.ptr(t) for t in kept), b, h, w, c, p.bands, p.rows, p.px, p.threads, p.smem,
+            _build.stream_of(x0),
+        )
+    _build.check(code, "residual_tail_fused")
+    return (out, *kept)
+
+
+def residual_tail_four(x0, k11, b11, k12, b12, k21, b21, k22, b22):
+    """(out, pre11, x1, pre21) from four conv3x3 launches, the route
+    :func:`tail_plan` calls "four"; ``k*`` are the (3, 3, C, C) weights.
+    Outside autograd; CPU tensors take the plain chain."""
+    return _forward(x0, k11, b11, k12, b12, k21, b21, k22, b22, conv3x3)
+
+
+def residual_tail_fused(x0, k11, b11, k12, b12, k21, b21, k22, b22, *, keep=False):
+    """(out, pre11, x1, pre21) from one launch of ``csrc/residual_tail.cu``;
+    the last three are None unless ``keep``. ``k*`` are the (3, 3, C, C)
+    weights. Outside autograd; CUDA tensors launch the kernel or raise, CPU
+    tensors take the plain chain."""
+    if x0.device.type == "cpu":
+        out, pre11, x1, pre21 = _forward(x0, k11, b11, k12, b12, k21, b21, k22, b22, conv3x3_plain)
+        return (out, pre11, x1, pre21) if keep else (out, None, None, None)
+    if x0.device.type != "cuda":
+        raise RuntimeError(f"residual_tail_fused: no kernel for device {x0.device}")
+    res = _launch_fused(x0, (k11, k12, k21, k22), (b11, b12, b21, b22), keep)
+    residual_tail_fused.launches += 1
+    return res
+
+
+def _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22, keep=False):
+    """(out, (x0, pre11, x1, pre21), the (3, 3, C, C) weights) by the route of
+    :func:`tail_plan`: one fused launch (pre11, x1, pre21 None unless
+    ``keep``) or four conv3x3 launches; their plain versions for CPU tensors."""
     x0 = x0.contiguous()
     ks = [hwio(w) for w in (w11, w12, w21, w22)]
     bs = [b.contiguous() for b in (b11, b12, b21, b22)]
-    out, pre11, x1, pre21 = _forward(x0, ks[0], bs[0], ks[1], bs[1], ks[2], bs[2], ks[3], bs[3], conv3x3)
+    args = (x0, ks[0], bs[0], ks[1], bs[1], ks[2], bs[2], ks[3], bs[3])
+    plan = tail_plan(*x0.shape) if x0.dim() == 4 else TailPlan("four")
+    if plan.family == "fused":
+        out, pre11, x1, pre21 = residual_tail_fused(*args, keep=keep)
+    else:
+        out, pre11, x1, pre21 = residual_tail_four(*args)
     if x0.device.type == "cuda":
         residual_tail.launches += 1
     return out, (x0, pre11, x1, pre21), ks
@@ -133,31 +278,36 @@ def _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22):
 
 class _ResidualTail(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x0, w11, b11, w12, b12, w21, b21, w22, b22):
-        out, kept, ks = _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22)
-        ctx.save_for_backward(*kept, out, *ks)
+    def forward(ctx, keep, x0, w11, b11, w12, b12, w21, b21, w22, b22):
+        out, kept, ks = _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22, keep)
+        if keep:
+            ctx.save_for_backward(*kept, out, *ks)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return residual_tail_backward(g.contiguous(), *ctx.saved_tensors)
+        return (None, *residual_tail_backward(g.contiguous(), *ctx.saved_tensors))
 
 
 def residual_tail(x0, w11, b11, w12, b12, w21, b21, w22, b22):
     """(B, H, W, C) -> (B, H, W, C), differentiable in every argument. CUDA
-    inputs take the four conv3x3 launches (and, in the backward, the dgrad
-    and wgrad launches) or raise; CPU inputs the plain versions of each."""
-    return _ResidualTail.apply(x0, w11, b11, w12, b12, w21, b21, w22, b22)
+    inputs take the route of :func:`tail_plan` (and, in the backward, the
+    dgrad and wgrad launches) or raise; CPU inputs the plain versions of each.
+    The forward keeps what the backward reads only while autograd records."""
+    args = (x0, w11, b11, w12, b12, w21, b21, w22, b22)
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    return _ResidualTail.apply(keep, *args)
 
 
 def residual_tail_ranges(x0, w11, b11, w12, b12, w21, b21, w22, b22):
     """(out, ranges): :func:`residual_tail`'s forward, outside autograd, and
     the largest value each of its four convs reads, max of relu(x0),
     relu(pre11), relu(x1) and relu(pre21) as a (4,) tensor: the int8
-    calibration's ranges, read from the same four launches."""
-    out, kept, _ = _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22)
+    calibration's ranges, read from what the same launches keep."""
+    out, kept, _ = _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22, keep=True)
     return out, torch.stack([t.amax() for t in kept]).clamp_min(0.0)
 
 
 residual_tail.launches = 0
+residual_tail_fused.launches = 0
 residual_tail_backward.launches = 0

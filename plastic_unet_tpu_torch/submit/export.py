@@ -25,8 +25,9 @@ program's constants stay where they were traced. So each requested platform
 is traced on its own device, and the loader runs the program of the device
 it is given.
 
-The serving forward's two kernels (the plastic head and the residual tail,
-whose four ``conv3x3`` launches are the chunk's 36) reach the program as the
+The serving forward's kernels (the plastic head and the residual tail: one
+launch of the fused tail kernel or four ``conv3x3`` launches, by the tail's
+``tail_plan``) reach the program as the
 custom ops of ops.export_ops: a program calls them by name, so the loader
 needs ``torch``, numpy and this package, whose import registers them, while
 the JAX artifact needs only jax. A loaded CUDA program launches the same
