@@ -26,7 +26,8 @@ is non-zero:
      pre11, x1, pre21, and under autograd in out and what it saves. Tolerance max|diff| <= 1e-4 *
      max(1, max|ref|): fp32 sums taken in another order over up to 9*256 terms.
      Then the NaN canary (phase_canary): every kernel and family at the level
-     shapes, B=128 and B=1, with its inputs inside NaN-filled buffers (16-byte
+     shapes, B=128 and B=1 (the fused tail and its fused backward at their
+     two shapes), with its inputs inside NaN-filled buffers (16-byte
      aligned, and off it) and every free block of the allocator NaN-filled
      before the launch; finite and within the same tolerance.
   3. UNetPRes at full width (neurons=16, nbf=101, seeded weights; hebb and
@@ -63,6 +64,12 @@ is non-zero:
      WGRAD_EDGE_CASES, where its tiling could break), the whole
      tail backward (dx0 and 8 parameter gradients) against the plain chain
      and against autograd of the plain forward. Same tolerance as phase 2.
+     Then the fused backward (csrc/residual_tail_backward.cu, forced) at
+     FUSED_TAIL_CHECKS x FUSED_TAIL_BS: dx0 equal to the eight launches' bit
+     for bit (not where their dgrad splits K), every gradient within
+     tolerance of the plain chain, two runs alike, and where tail_bwd_plan
+     fuses, dW and db no farther from a float64 run than the eight
+     launches'; under autograd, residual_tail's gradients equal its route's.
   8. the training path at full width: UNetPRes neurons=16, nbf=101, seeded
      weights, hebb and oja, B=1, dropout 0, 8 steps (lr 1e-3, gamma 0.5,
      step_size 3) on synthetic tiles, eager on the card against the CPU
@@ -72,18 +79,28 @@ is non-zero:
      losses, parameters and trace bit for bit. Then 8 steps at dropout 0.5
      (graph against eager from the same generator seed, bit for bit; the
      mask contract on one eager forward) and 4 steps at lanes=128 (graph
-     against eager, bit for bit; trace (128, 101, 101)).
+     against eager, bit for bit; trace (128, 101, 101)); then 4 steps at
+     the fewest lanes at which tail_bwd_plan fuses the 101^2 and 50^2 tails
+     (fused_bwd_lanes), eager on the card against the CPU port within the
+     B=1 run's tolerances.
   9. proof of path: per eager training step 1 head launch, 9 tail forwards
      (36 conv launches), 9 tail backwards (36 dgrad and 36 wgrad launches);
      the graph run launches the same for 3 steps (2 warm-up steps and the
-     capture) and nothing in its replays.
+     capture) and nothing in its replays. At lanes=128 (lane_step_counts):
+     1 head, 9 tails (4 fused, 20 conv3x3), 9 tail backwards (4 fused, 20
+     dgrad, 20 wgrad), the graph run 3 steps of them.
   10. times: dgrad, wgrad and the tail backward at the five shapes, B=1 and
      B=128, with plain, bound and the library call (F.conv2d with flipped
      weights; aten.convolution_backward for weight and bias, also under
      training_numerics: deterministic cuDNN, as the training step runs it); the B=1 step
      eager and as a graph (steps/s, device time; the eager step's idle
-     share is derived from the replay's device time), lanes=128 samples/s,
-     and the step's FLOP bound.
+     share is derived from the replay's device time), lanes=128 samples/s
+     and its 9 tail backwards by route, and the step's FLOP bound; at B=128
+     the tail backward at the five levels by tail_bwd_plan's route, the
+     eight launches forced, the fused kernel where it fits, and cuDNN's
+     chain through autograd (deterministic, TF32 off); both backward routes
+     forced at FUSED_TAIL_CHECKS over TAIL_SWEEP_BS (tail_bwd_route_sweep)
+     and the B from which the rule fuses.
   11. the training entry point (python -m plastic_unet_tpu_torch.cli.train,
      in-process, in a temporary directory): UNetPRes neurons=16, nbf=101,
      B=1, --synthetic 40 (32 train / 8 validation tiles), dropout 0.5,
@@ -141,7 +158,13 @@ counts the tails of either route), four_launch_ms the four conv3x3
 launches on the same inputs, keep_ms the fused kernel keeping pre11, x1
 and pre21, the _50 keys the same at 50x50x32; its _b1 keys are the B=1
 tail, which takes the four launches (route_b1); route_sweep holds phase
-6's rows [H, C, B, four ms, fused ms, keep ms, tail_plan's route].
+6's rows [H, C, B, four ms, fused ms, keep ms, tail_plan's route]. The
+residual_tail_backward_fused entry is the fused backward at 101x101x16,
+B=128: launches per eager step of the lanes=128 path (phase 9; no B=1 step
+takes it), eight_launch_ms the eight launches on the same inputs,
+library_chain_ms cuDNN's chain through autograd (several calls, so
+library_ms is null), the _50 keys at 50x50x32, route_sweep phase 10's rows
+[H, C, B, eight ms, fused ms, tail_bwd_plan's route].
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -171,9 +194,10 @@ LEVELS = [(101, 16), (50, 32), (25, 64), (12, 128), (6, 256)]  # (H=W, C) of the
 TAILS_PER_CHUNK = {101: 2, 50: 2, 25: 2, 12: 2, 6: 1}  # a DownRes and an UpRes Middle per level; Middle at 6
 HEAD_PER_CHUNK = 1
 COUNTED = ("plastic_head", "residual_tail", "residual_tail_fused", "conv3x3", "residual_tail_backward",
-           "conv3x3_dgrad", "conv3x3_wgrad")
+           "conv3x3_dgrad", "conv3x3_wgrad", "residual_tail_backward_fused")
 STEP_COUNTS = {"plastic_head": 1, "residual_tail": 9, "residual_tail_fused": 0, "conv3x3": 36,
-               "residual_tail_backward": 9, "conv3x3_dgrad": 36, "conv3x3_wgrad": 36}  # per eager training step
+               "residual_tail_backward": 9, "conv3x3_dgrad": 36, "conv3x3_wgrad": 36,
+               "residual_tail_backward_fused": 0}  # per eager training step, B=1
 FUSED_TAIL_SHAPES = [(101, 16), (50, 32)]  # the levels tail_plan routes to csrc/residual_tail.cu at B=128
 FUSED_TAIL_BS = (B, 3, 37)  # phase 2: the fused tail == four launches, bit for bit, at these B
 FUSED_TAIL_CHECKS = FUSED_TAIL_SHAPES + [(50, 16), (25, 32)]  # and the epoch-225 checkpoint's (neurons=8) fused levels
@@ -191,6 +215,31 @@ def chunk_counts(neurons: int = 16, b: int = B) -> dict:
     tails = sum(TAILS_PER_CHUNK.values())
     return {"plastic_head": HEAD_PER_CHUNK, "residual_tail": tails, "residual_tail_fused": fused,
             "conv3x3": 4 * (tails - fused)}
+
+
+def lane_step_counts(lanes: int, neurons: int = 16) -> dict:
+    """Launches of one eager training step of ``lanes`` samples: the forward
+    of chunk_counts and 9 tail backwards, each one launch of the fused
+    backward or four dgrad and four wgrad launches, as
+    ops.residual_tail.tail_bwd_plan routes its shape."""
+    from plastic_unet_tpu_torch.ops.residual_tail import tail_bwd_plan
+
+    counts = dict.fromkeys(COUNTED, 0)
+    counts.update(chunk_counts(neurons, lanes))
+    fused = sum(TAILS_PER_CHUNK[hw] for i, (hw, _) in enumerate(LEVELS)
+                if tail_bwd_plan(lanes, hw, hw, neurons * 2 ** i).family == "fused")
+    tails = sum(TAILS_PER_CHUNK.values())
+    counts.update({"residual_tail_backward": tails, "residual_tail_backward_fused": fused,
+                   "conv3x3_dgrad": 4 * (tails - fused), "conv3x3_wgrad": 4 * (tails - fused)})
+    return counts
+
+
+def fused_bwd_lanes(neurons: int = 16) -> int:
+    """The fewest lanes at which tail_bwd_plan fuses the tails at both 101^2 and 50^2."""
+    from plastic_unet_tpu_torch.ops.residual_tail import tail_bwd_plan
+
+    return next(b for b in range(1, B + 1) if all(
+        tail_bwd_plan(b, hw, hw, neurons * 2 ** i).family == "fused" for i, (hw, _) in enumerate(LEVELS[:2])))
 
 
 def scaled(counts: dict, k: int) -> dict:
@@ -543,7 +592,7 @@ def phase_fused_tail(dev, errs):
 def phase_canary(dev, offset: int):
     """The NaN canary of every kernel and family at the level shapes, B=128 and B=1 (conv3x3 and its
     input-gradient form in each family the shape takes, conv3x3_wgrad, the fused residual tail at its
-    two shapes with pre11, x1 and pre21 kept, the head's families, hebb and oja): inputs inside NaN-filled buffers ``offset`` floats in (1: off 16-byte alignment), outputs in
+    two shapes with pre11, x1 and pre21 kept, its fused backward there, the head's families, hebb and oja): inputs inside NaN-filled buffers ``offset`` floats in (1: off 16-byte alignment), outputs in
     NaN-filled blocks; each finite and within phase 2's tolerance of the plain version. A kernel
     that reads memory it never wrote, or leaves part of its output unwritten, fails here where two
     launches back to back (the same blocks) would agree. Returns [(kernel, case, max|diff|)]."""
@@ -588,14 +637,18 @@ def phase_canary(dev, offset: int):
             hold("conv3x3_wgrad", f"B={b} {hw}^2x{c}",
                  canary(conv3x3_wgrad, x, res, relu_in=True, layout="oihw", offset=offset),
                  conv3x3_wgrad_plain(x, res, relu_in=True, layout="oihw"))
-            if (hw, c) in FUSED_TAIL_SHAPES:  # the fused tail, forced at B=1 too, keeping its three tensors
-                args, _ = tail_operands(rnd, b, hw, c)
-                _, pre11, x1, pre21, out = tail_saved(args)
+            if (hw, c) in FUSED_TAIL_SHAPES:  # the fused tail and its backward, forced at B=1 too
+                args, gout = tail_operands(rnd, b, hw, c)
+                saved = tail_saved(args)
+                _, pre11, x1, pre21, out = saved
                 kargs = [args[0]] + [c3.hwio(t) if t.dim() == 4 else t for t in args[1:]]
                 hold("residual_tail_fused", f"B={b} {hw}^2x{c}",
                      canary(rt.residual_tail_fused, *kargs, keep=True, offset=offset),
                      (out, pre11, x1, pre21))
-                del args, kargs, pre11, x1, pre21, out
+                hold("residual_tail_backward_fused", f"B={b} {hw}^2x{c}",
+                     canary(rt.residual_tail_backward_fused, gout, *saved, *kargs[1::2], offset=offset),
+                     rt.residual_tail_backward_plain(gout, *saved, *args[1::2]))
+                del args, kargs, saved, pre11, x1, pre21, out, gout
         n = 101
         w, alpha, eta = rnd(n, n, scale=0.01), rnd(n, n).abs() * 0.01, torch.full((1,), 0.01, device=dev)
         x, hebb = rnd(b, n, n), rnd(b, n, n, scale=0.1)
@@ -610,7 +663,7 @@ def phase_canary(dev, offset: int):
                      plastic_head_plain(w, alpha, eta, x, hebb, rule=rule))
     torch.cuda.synchronize()
     print(f"[2] NaN canary, inputs {offset} float(s) into NaN-filled buffers, outputs in NaN-filled blocks: "
-          f"{len(lines)} cases (conv3x3 and dgrad in each family, wgrad, the fused tail, the head's families; level shapes, "
+          f"{len(lines)} cases (conv3x3 and dgrad in each family, wgrad, the fused tail and its backward, the head's families; level shapes, "
           f"B={B} and B=1) finite and within tolerance, max|diff| {max(e for *_, e in lines):.3g}", flush=True)
     return lines
 
@@ -664,10 +717,11 @@ def counted() -> dict:
     from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dgrad
     from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad
     from plastic_unet_tpu_torch.ops.plastic_head import plastic_head
-    from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_backward, residual_tail_fused
+    from plastic_unet_tpu_torch.ops.residual_tail import (residual_tail, residual_tail_backward,
+                                                          residual_tail_backward_fused, residual_tail_fused)
 
     fns = (plastic_head, residual_tail, residual_tail_fused, conv3x3, residual_tail_backward, conv3x3_dgrad,
-           conv3x3_wgrad)
+           conv3x3_wgrad, residual_tail_backward_fused)
     return dict(zip(COUNTED, fns))
 
 
@@ -913,11 +967,83 @@ def phase_backward_kernels(dev):
     print(f"[7] residual_tail_backward 5 level shapes x B=1, B={B}, dx0 and 8 parameter gradients against the "
           f"plain chain and autograd of the plain forward: max|diff| {errs.all('residual_tail_backward'):.3g}, "
           f"over max(1, max|ref|) {rel['residual_tail_backward']:.3g}", flush=True)
+    phase_fused_backward(dev, hold, names)
+    print(f"[7] residual_tail_backward_fused: max|diff| against the plain chain "
+          f"{errs.all('residual_tail_backward_fused'):.3g}, over max(1, max|ref|) "
+          f"{rel['residual_tail_backward_fused']:.3g}", flush=True)
     torch.cuda.synchronize()
     return errs
 
 
+def phase_fused_backward(dev, hold, names):
+    """The fused backward (csrc/residual_tail_backward.cu, forced) at FUSED_TAIL_CHECKS x FUSED_TAIL_BS:
+    dx0 equal to the eight launches' bit for bit (where their dgrad takes square tiles or whole
+    samples; the split family sums in its own order), every gradient within phase 2's tolerance of the
+    plain chain, two runs alike; where tail_bwd_plan takes the fused route, dW and db no farther from
+    a float64 run of the plain chain than the eight launches' (theirs sum in another order, so their
+    bits differ). Then residual_tail under autograd: its gradients equal its route's own (fused or
+    eight) on the tensors it saved, bit for bit."""
+    from plastic_unet_tpu_torch.ops import residual_tail as rt
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_plan, hwio
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    for hw, c in FUSED_TAIL_CHECKS:
+        for b in FUSED_TAIL_BS:
+            args, gout = tail_operands(rnd, b, hw, c)
+            saved = tail_saved(args)
+            ws = args[1::2]
+            ks = [hwio(w) for w in ws]
+            plan = rt.tail_bwd_plan(b, hw, hw, c, family="fused")
+            what = f"residual_tail_backward_fused B={b} {hw}^2x{c} (bands, rows) {(plan.bands, plan.rows)}"
+            fused = rt.residual_tail_backward_fused(gout, *saved, *ks)
+            again = rt.residual_tail_backward_fused(gout, *saved, *ks)
+            eight = rt.residual_tail_backward_eight(gout, *saved, *ks)
+            for nm, gt, rf in zip(names, fused, rt.residual_tail_backward_plain(gout, *saved, *ws)):
+                hold("residual_tail_backward_fused", b, hw, f"{what} {nm} vs plain chain", gt, rf)
+            check(all(bool(torch.equal(x, y)) for x, y in zip(fused, again)), f"{what}: two runs differ in some bit")
+            square = conv3x3_plan(b, hw, hw, c, c, True).family != "split"
+            check(not square or bool(torch.equal(fused[0], eight[0])),
+                  f"{what}: dx0 differs from the eight launches' in some bit")
+            p64 = rt.residual_tail_backward_plain(gout.double(), *(t.double() for t in saved),
+                                                  *(w.double() for w in ws))
+            far = [max(float((x.double() - q).abs().max()) for x, q in zip(r[1:], p64[1:])) for r in (fused, eight)]
+            routed = rt.tail_bwd_plan(b, hw, hw, c).family == "fused"
+            check(not routed or far[0] <= far[1], f"{what}: dW, db {far[0]:.3g} from float64, the eight "
+                  f"launches' {far[1]:.3g}")
+            leaves = [t.clone().requires_grad_() for t in args]
+            out = rt.residual_tail(*leaves)
+            kept = out.grad_fn.saved_tensors
+            grads = torch.autograd.grad(out, leaves, gout)
+            route = rt.residual_tail_backward_fused if routed else rt.residual_tail_backward_eight
+            want = route(gout, *kept)
+            check(all(bool(torch.equal(x, y)) for x, y in zip(grads, want)),
+                  f"{what}: residual_tail under autograd differs from its route's gradients")
+            print(f"[7] {what}: two runs alike; dx0 {'== the eight launches bit for bit' if square else 'not held to the eight launches (their dgrad splits K)'}; "
+                  f"dW, db from float64: fused {far[0]:.3g}, eight {far[1]:.3g}"
+                  f"{' (held: tail_bwd_plan fuses here)' if routed else ''}; under autograd by the "
+                  f"{'fused' if routed else 'eight'} route, equal to it", flush=True)
+            del args, gout, saved, fused, again, eight, p64, leaves, out, kept, grads, want
+
+
 # --------------------------------------------------------------------------- phase 6
+
+def cudnn_tail_nhwc(x0, w11, b11, w12, b12, w21, b21, w22, b22):
+    """The tail on cuDNN (NHWC in and out): four F.conv2d calls with their ReLUs and skips, the
+    yardstick of the forward (phase 6) and, through autograd, of the backward (phase 10)."""
+    import torch.nn.functional as F
+
+    def conv(x, w, b):
+        return F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1)
+
+    h1 = torch.relu(x0)
+    x1 = conv(torch.relu(conv(h1, w11, b11)), w12, b12) + h1
+    h2 = torch.relu(x1)
+    return torch.relu(conv(torch.relu(conv(h2, w21, b21)), w22, b22) + h2)
+
 
 def tail_route_sweep(rnd) -> list:
     """Both tail routes, forced, at FUSED_TAIL_CHECKS x TAIL_SWEEP_BS where the fused kernel may run
@@ -946,6 +1072,35 @@ def tail_route_sweep(rnd) -> list:
     return rows
 
 
+def tail_bwd_route_sweep(rnd) -> list:
+    """Both backward routes, forced, at FUSED_TAIL_CHECKS x TAIL_SWEEP_BS where the fused kernel fits,
+    and at each shape's first B of tail_bwd_plan's fused route and the one before it: rows (H, C, B,
+    eight ms, fused ms, tail_bwd_plan's route), printed with the faster route; the evidence the rule
+    is set from."""
+    from plastic_unet_tpu_torch.ops import residual_tail as rt
+    from plastic_unet_tpu_torch.ops.conv3x3 import hwio
+
+    rows = []
+    for hw, c in FUSED_TAIL_CHECKS:
+        first = next((b for b in range(1, 8 * B) if rt.tail_bwd_plan(b, hw, hw, c).family == "fused"), None)
+        edge = {first - 1, first} if first else set()  # the rule's boundary, timed too
+        for b in sorted(set(TAIL_SWEEP_BS) | edge):
+            args, gout = tail_operands(rnd, b, hw, c)
+            saved = tail_saved(args)
+            ks = [hwio(t) for t in args[1::2]]
+            eight = time_ms(lambda: rt.residual_tail_backward_eight(gout, *saved, *ks))[0]
+            fused = time_ms(lambda: rt.residual_tail_backward_fused(gout, *saved, *ks))[0]
+            route = rt.tail_bwd_plan(b, hw, hw, c).family
+            rows.append([hw, c, b, eight, fused, route])
+            print(f"[10] backward routes {hw}x{hw}x{c} B={b}: eight launches {eight:.4f} ms, fused {fused:.4f} ms, "
+                  f"faster {'fused' if fused < eight else 'eight'}, tail_bwd_plan {route}", flush=True)
+            del args, gout, saved, ks
+        print(f"[10] tail_bwd_plan takes the fused backward at {hw}x{hw}x{c} from B={first} (the batch's pixels "
+              f"fill {rt.BWD_MIN_FILL:.0%} of the card's pixel slots; not where the dgrad takes whole samples)",
+              flush=True)
+    return rows
+
+
 def phase_times(dev, name, full, main_counts, errs):
     import torch.nn.functional as F
 
@@ -963,12 +1118,6 @@ def phase_times(dev, name, full, main_counts, errs):
 
     def cudnn_conv(x, w, b):
         return F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1)
-
-    def cudnn_tail(x0, w11, b11, w12, b12, w21, b21, w22, b22):
-        h1 = torch.relu(x0)
-        x1 = cudnn_conv(torch.relu(cudnn_conv(h1, w11, b11)), w12, b12) + h1
-        h2 = torch.relu(x1)
-        return torch.relu(cudnn_conv(torch.relu(cudnn_conv(h2, w21, b21)), w22, b22) + h2)
 
     table = {}  # (kernel, B, H) -> its times and bound
     with torch.inference_mode(), matmul_precision("parity"):
@@ -1004,7 +1153,7 @@ def phase_times(dev, name, full, main_counts, errs):
                 tail = dict(
                     ms=time_ms(lambda: residual_tail(*targs))[0],
                     plain_ms=time_ms(lambda: residual_tail_plain(*targs))[0],
-                    cudnn_ms=time_ms(lambda: cudnn_tail(*targs))[0],  # four F.conv2d calls + elementwise
+                    cudnn_ms=time_ms(lambda: cudnn_tail_nhwc(*targs))[0],  # four F.conv2d calls + elementwise
                 )
                 tail["bound_ms"], tail["bound_by"] = bound_ms(
                     4 * 2 * 9 * c * c * b * hw * hw, 4 * (2 * b * hw * hw * c + 4 * (9 * c * c + c)), pk)
@@ -1205,15 +1354,51 @@ def phase_training(dev):
           f"the first pool (rate 0.25), {fracs['conv3']:.2f} at the second (rate 0.5)", flush=True)
 
     Xl, Yl = train_stream(4, B, seed=22)
+    reset_counts()
     e_state, e_losses = train_run("oja", dev, Xl, Yl, graph=False, lanes=B)
+    torch.cuda.synchronize()
+    counts, per_step = read_counts(), lane_step_counts(B)
+    check(counts == scaled(per_step, 4), f"lanes={B}: launches of 4 eager steps {counts} != {scaled(per_step, 4)}")
+    print(f"[9] MAIN PATH (training, lanes): neurons=16 oja, lanes={B}, 4 eager steps: launches per step "
+          f"{({k: v for k, v in per_step.items() if v})}", flush=True)
+    reset_counts()
     state, losses = train_run("oja", dev, Xl, Yl, graph=None, lanes=B)
+    torch.cuda.synchronize()
+    check(read_counts() == scaled(per_step, 3), f"lanes={B}: launches of the graph run {read_counts()} != "
+          f"{scaled(per_step, 3)} (warm-up 2 + capture 1)")
     check(bool(torch.isfinite(losses).all()) and tuple(state.hebb.shape) == (B, 101, 101)
           and bool(torch.isfinite(state.hebb).all()), f"lanes={B}: bad losses or trace")
     check(bool(torch.equal(losses, e_losses)) and bool(torch.equal(state.hebb, e_state.hebb)),
           f"lanes={B}: graph losses or trace differ from the eager ones: {(losses - e_losses).abs().max().item():.3g}")
     print(f"[8] lanes={B}, 4 steps, the default path (CUDA graph): losses {[round(v, 5) for v in losses.tolist()]}, "
-          f"trace {tuple(state.hebb.shape)}; both equal the eager run's bit for bit", flush=True)
-    return step_counts
+          f"trace {tuple(state.hebb.shape)}; both equal the eager run's bit for bit; the kernels were launched for 3 "
+          f"steps and by no replay", flush=True)
+
+    # The fewest lanes at which the fused backward takes both 101^2 and 50^2: eager on the card against the CPU port.
+    nl = fused_bwd_lanes()
+    Xs, Ys = train_stream(4, nl, seed=25)
+    t0 = time.time()
+    cpu_state, cpu_losses = train_run("oja", "cpu", Xs, Ys, graph=False, lanes=nl)
+    t_cpu = time.time() - t0
+    reset_counts()
+    state, losses = train_run("oja", dev, Xs, Ys, graph=False, lanes=nl)
+    torch.cuda.synchronize()
+    want = scaled(lane_step_counts(nl), 4)
+    check(read_counts() == want and want["residual_tail_backward_fused"] == 16,
+          f"lanes={nl}: launches of 4 eager steps {read_counts()} != {want}")
+    e_loss = float((losses.cpu() - cpu_losses).abs().max())
+    e_par = max(float((a.detach().cpu() - q.detach()).abs().max())
+                for a, q in zip(state.model.parameters(), cpu_state.model.parameters()))
+    e_tr = float((state.hebb.cpu() - cpu_state.hebb).abs().max())
+    check(bool(torch.isfinite(losses).all()) and e_loss <= 5e-5,
+          f"lanes={nl}: per-step losses card vs CPU port max|diff| {e_loss:.3g} > 5e-5")
+    check(e_par <= 5e-4, f"lanes={nl}: final parameters card vs CPU port max|diff| {e_par:.3g} > 5e-4")
+    check(float(state.hebb.abs().max()) > 0 and e_tr <= 1e-4, f"lanes={nl}: trace card vs CPU max|diff| {e_tr:.3g}")
+    print(f"[8] lanes={nl} (the fewest at which the fused backward takes the 101^2 and 50^2 tails), 4 steps, eager on "
+          f"the card vs the CPU port ({t_cpu:.1f}s): losses {[round(v, 6) for v in losses.tolist()]}, max|diff| "
+          f"losses {e_loss:.3g}, parameters {e_par:.3g}, trace {e_tr:.3g}; launches per step "
+          f"{({k: v // 4 for k, v in want.items() if v})}", flush=True)
+    return step_counts, per_step
 
 
 # --------------------------------------------------------------------------- phase 10
@@ -1226,11 +1411,12 @@ def backward_flops(neurons: int, size: int = 101, nbf: int = 101) -> float:
     return 2 * forward_flops(neurons, size, nbf) - 2 * 9 * size * size * neurons
 
 
-def phase_training_times(dev, name, errs, step_counts, fwd_table):
+def phase_training_times(dev, name, errs, step_counts, lane_counts, fwd_table):
     import torch.nn.functional as F
 
     from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_dgrad, conv3x3_dgrad_plain, hwio
     from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, conv3x3_wgrad_plain
+    from plastic_unet_tpu_torch.ops import residual_tail as rt
     from plastic_unet_tpu_torch.ops.residual_tail import residual_tail_backward, residual_tail_backward_plain
     from plastic_unet_tpu_torch.train.loop import GraphTrainStep, create_train_state, make_train_step
     from plastic_unet_tpu_torch.utils.precision import matmul_precision, training_numerics
@@ -1281,6 +1467,30 @@ def phase_training_times(dev, name, errs, step_counts, fwd_table):
                 )
                 # reads g and the five kept activations and four weights, writes dx0 and the gradients
                 tail["bound_ms"], tail["bound_by"] = bound_ms(8 * conv_flops, 7 * act + 8 * 4 * (9 * c * c + c), pk)
+                if b == B:  # the route, the eight launches forced, the fused kernel where it fits, cuDNN's chain
+                    tail["route"] = rt.tail_bwd_plan(b, hw, hw, c).family
+                    tail["eight_ms"] = time_ms(lambda: rt.residual_tail_backward_eight(gout, *saved, *ks))[0]
+                    leaves = [t.clone().requires_grad_() for t in args]
+                    with torch.enable_grad(), training_numerics():
+                        lib_out = cudnn_tail_nhwc(*leaves)
+                        tail["library_chain_ms"] = time_ms(
+                            lambda: torch.autograd.grad(lib_out, leaves, gout, retain_graph=True))[0]
+                    del leaves, lib_out
+                    try:
+                        rt.tail_bwd_plan(b, hw, hw, c, family="fused")
+                    except ValueError:  # no fused tiling at this width
+                        tail["fused_ms"] = None
+                    else:
+                        tail["fused_ms"] = time_ms(lambda: rt.residual_tail_backward_fused(gout, *saved, *ks))[0]
+                        table[("residual_tail_backward_fused", b, hw)] = dict(
+                            ms=tail["fused_ms"], plain_ms=tail["plain_ms"], bound_ms=tail["bound_ms"],
+                            bound_by=tail["bound_by"], eight_ms=tail["eight_ms"],
+                            library_chain_ms=tail["library_chain_ms"])
+                    fused = "none" if tail["fused_ms"] is None else f"{tail['fused_ms']:.4f} ms"
+                    print(f"[10] residual_tail_backward {hw}x{hw}x{c} B={b}: route {tail['route']} {tail['ms']:.4f} ms; "
+                          f"fused {fused}, eight launches {tail['eight_ms']:.4f} ms, cuDNN's chain by autograd "
+                          f"(deterministic, TF32 off) {tail['library_chain_ms']:.4f} ms, bound {tail['bound_ms']:.5f} ms",
+                          flush=True)
                 for kname, e in (("conv3x3_dgrad", dgrad), ("conv3x3_wgrad", wgrad), ("residual_tail_backward", tail)):
                     lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
                     if "library_det_ms" in e:
@@ -1289,6 +1499,8 @@ def phase_training_times(dev, name, errs, step_counts, fwd_table):
                           f"library {lib}, bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
                           f"{e['bound_ms'] / e['ms']:.1%} of bound", flush=True)
                     table[(kname, b, hw)] = e
+
+    table["bwd_sweep"] = tail_bwd_route_sweep(rnd)
 
     # the whole step, B=1
     X, Y = train_stream(16, 1, seed=23)
@@ -1346,10 +1558,12 @@ def phase_training_times(dev, name, errs, step_counts, fwd_table):
     lane_dev_ms, _ = time_ms(lambda: eager(st_l, (Xl[0], Yl[0])), reps=5, warmup=1)
     lane_bound, _ = bound_ms(flops * B, 0.0, pk)
     tails_bwd_l = sum(TAILS_PER_CHUNK[hw] * table[("residual_tail_backward", B, hw)]["ms"] for hw, _ in LEVELS)
+    tails_bwd_8 = sum(TAILS_PER_CHUNK[hw] * table[("residual_tail_backward", B, hw)]["eight_ms"] for hw, _ in LEVELS)
     print(f"[10] training step neurons=16 lanes={B}, eager: {B / lane_s:.1f} samples/s ({lane_s * 1e3:.2f} ms per "
           f"step, host clock; device time {lane_dev_ms:.2f} ms, device idle share "
-          f"{max(0.0, 1 - lane_dev_ms / (lane_s * 1e3)):.1%}); 9 tail backwards {tails_bwd_l:.2f} ms of it; bound "
-          f"{lane_bound:.2f} ms at the fp32 peak", flush=True)
+          f"{max(0.0, 1 - lane_dev_ms / (lane_s * 1e3)):.1%}); 9 tail backwards {tails_bwd_l:.2f} ms of it by "
+          f"tail_bwd_plan's routes ({lane_counts['residual_tail_backward_fused']} fused; all nine by the eight "
+          f"launches: {tails_bwd_8:.2f} ms); bound {lane_bound:.2f} ms at the fp32 peak", flush=True)
 
     sources = {
         "conv3x3_dgrad": ("plastic_unet_tpu_torch/csrc/conv3x3.cu", "plastic_unet_tpu/ops/pallas_trunk.py:231"),
@@ -1369,7 +1583,23 @@ def phase_training_times(dev, name, errs, step_counts, fwd_table):
         entry.update({f"max_abs_err_b{B}": errs.at(kname, B), "max_abs_err_all_shapes": errs.all(kname)})
         if "library_det_ms" in one:
             entry.update({"library_det_ms": one["library_det_ms"], f"library_det_ms_b{B}": many["library_det_ms"]})
+        if kname == "residual_tail_backward":  # B=128 by route: the fused kernel at 101^2 and 50^2
+            entry.update({f"route_b{B}": many["route"], f"eight_launch_ms_b{B}": many["eight_ms"],
+                          f"library_chain_ms_b{B}": many["library_chain_ms"]})
         kernels.append(entry)
+    # the fused backward: the lanes path's kernel (no B=1 step takes it); its shape B=128 101x101x16
+    fb, fb50 = table[("residual_tail_backward_fused", B, 101)], table[("residual_tail_backward_fused", B, 50)]
+    kernels.append({
+        "name": "residual_tail_backward_fused", "route": "cuda",
+        "source": "plastic_unet_tpu_torch/csrc/residual_tail_backward.cu",
+        "replaces": "plastic_unet_tpu/ops/pallas_trunk.py:231", "launches": lane_counts["residual_tail_backward_fused"],
+        "main_path": f"one eager training step, lanes={B}", "max_abs_err": errs.at("residual_tail_backward_fused", B),
+        "ms": fb["ms"], "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+        "library_ms": None, "shape": f"B={B} 101x101x16", "eight_launch_ms": fb["eight_ms"],
+        "library_chain_ms": fb["library_chain_ms"], "ms_50": fb50["ms"], "eight_launch_ms_50": fb50["eight_ms"],
+        "plain_ms_50": fb50["plain_ms"], "bound_ms_50": fb50["bound_ms"], "library_chain_ms_50": fb50["library_chain_ms"],
+        "max_abs_err_50": errs.at("residual_tail_backward_fused", B, 50),
+        "max_abs_err_all_shapes": errs.all("residual_tail_backward_fused"), "route_sweep": table["bwd_sweep"]})
     return kernels, graph_s
 
 
@@ -2107,10 +2337,10 @@ def main() -> int:
 
     with matmul_precision("parity"):
         bwd_errs = phase_backward_kernels(dev)
-    step_counts = phase_training(dev)
+    step_counts, lane_counts = phase_training(dev)
     for entry in kernels:  # the serving kernels are on the training path too
         entry["launches_train_step"] = step_counts[entry.get("counter", entry["name"])]
-    more, graph_step_s = phase_training_times(dev, name, bwd_errs, step_counts, fwd_table)
+    more, graph_step_s = phase_training_times(dev, name, bwd_errs, step_counts, lane_counts, fwd_table)
     kernels += more
     driver_counts = phase_driver(dev, smi, graph_step_s)
     for entry in kernels:  # launches of the driver's first run (phase 11)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the plastic head, the conv3x3, conv3x3_dgrad and conv3x3_wgrad kernels, the forward residual tail and the
-serving path of several checkouts of this repository on one CUDA card, one after the other in one run:
+"""Time the plastic head, the conv3x3, conv3x3_dgrad and conv3x3_wgrad kernels, the residual tail forward and
+backward, the lanes=128 training step and the serving path of several checkouts of this repository on one CUDA
+card, one after the other in one run:
 
     mkdir -p build/parent && git archive HEAD plastic_unet_tpu_torch | tar -x -C build/parent
     python3 kernel_ab.py build/parent . . build/parent
@@ -22,7 +23,14 @@ tail's backward calls it; its second stage included) at the five UNetPRes
 level shapes, B=1 and B=128, the forward residual tail at the five level
 shapes, B=128, by the checkout's route (four conv3x3 launches, or the fused
 kernel where its tail_plan says so; with a digest of out: the fused kernel
-keeps the four launches' bits, so the digests must match), and the serving rate of the neurons=16
+keeps the four launches' bits, so the digests must match), the tail
+backward at the five level shapes, B=128, by the checkout's route (the
+eight dgrad and wgrad launches, or the fused backward where its
+tail_bwd_plan says so), with a digest of dx0 (the fused backward keeps the
+eight launches' bits there, so these must match) and one of the weight and
+bias gradients (which it sums in its own order, so these differ where the
+route does; max|diff| against the plain chain beside them), the eager
+training step at lanes=128 in samples/s, and the serving rate of the neurons=16
 predictor on 4 chunks of 128 tiles (host clock, median of 3). Each conv3x3
 and dgrad line ends with a digest of the output bytes (for dgrad, of the
 output and the masked input) from inputs seeded by the shape: equal digests
@@ -91,12 +99,42 @@ def time_head(label: str) -> None:
                       flush=True)
 
 
+def lanes_rate(label: str) -> None:
+    """The eager training step at lanes=128 (UNetPRes neurons=16, oja, dropout 0; as chip_smoke.py phase
+    10): samples/s by the host clock over 4 steps, median of 3."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import B, train_stream
+
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.train.loop import create_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    X, Y = train_stream(2, B, seed=24)
+    X, Y = X.to(dev), Y.to(dev)
+    model = UNetPRes(neurons=16, nbf=101, rule="oja", dropout_ratio=0.0, generator=torch.Generator().manual_seed(3))
+    state = create_train_state(model, 1e-3, 0.5, 1e6, lanes=B, device=dev)
+    step = make_train_step()
+    step(state, (X[0], Y[0]))
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(4):
+            step(state, (X[i % 2], Y[i % 2]))
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) / 4)
+    sec = float(np.median(secs))
+    print(f"[{label}] training step lanes={B}, eager: {B / sec:.1f} samples/s ({sec * 1e3:.2f} ms per step)", flush=True)
+
+
 def time_checkout(label: str) -> int:
     """Runs with the checkout as the working directory."""
     import numpy as np
     import torch
 
-    from chip_smoke import LEVELS, B, time_ms  # this script's neighbour: the same clock for every checkout
+    from chip_smoke import LEVELS, B, tail_saved, time_ms  # this script's neighbour: the same clock for every checkout
 
     sys.path.insert(0, os.getcwd())  # the package of the checkout, not of this script's directory
     from plastic_unet_tpu_torch.models.unet_res import UNetPRes
@@ -185,6 +223,22 @@ def time_checkout(label: str) -> int:
             route = tail_mod.tail_plan(B, hw, hw, c).family if hasattr(tail_mod, "tail_plan") else "four"
             print(f"[{label}] residual_tail B={B} {hw}x{hw}x{c} ({route}): {ms:.4f} ms digest "
                   f"{digest(tail_mod.residual_tail(*args))}", flush=True)
+        for hw, c in LEVELS:  # the tail backward by the checkout's route (eight launches, or the fused kernel)
+            gen.manual_seed(1000 * hw + B + 3)
+            args = [rnd(B, hw, hw, c)]
+            for _ in range(4):
+                args += [rnd(c, c, 3, 3) * (0.5 / (3 * c ** 0.5)), rnd(c) * 0.1]
+            gout, saved, ws = rnd(B, hw, hw, c), tail_saved(args), args[1::2]
+            ks = [hwio(w) for w in ws]
+            ms = time_ms(lambda: tail_mod.residual_tail_backward(gout, *saved, *ks))[0]
+            got = tail_mod.residual_tail_backward(gout, *saved, *ks)
+            plain = tail_mod.residual_tail_backward_plain(gout, *saved, *ws)
+            route = tail_mod.tail_bwd_plan(B, hw, hw, c).family if hasattr(tail_mod, "tail_bwd_plan") else "eight"
+            print(f"[{label}] residual_tail_backward B={B} {hw}x{hw}x{c} ({route}): {ms:.4f} ms digest dx0 "
+                  f"{digest(got[0])} dW, db {digest(*got[1:])} (max|diff| vs plain "
+                  f"{max(diff(a, q) for a, q in zip(got[1:], plain[1:])):.3g})", flush=True)
+            del args, gout, saved, ks, got, plain
+    lanes_rate(label)
     model = UNetPRes(neurons=16, nbf=101, rule="oja", generator=torch.Generator().manual_seed(0))
     pred = MaskPredictor(model, threshold=0.5).warmup()
     xs = np.random.default_rng(2).random((4 * B, 101, 101), dtype=np.float32)

@@ -56,23 +56,9 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "residual_tail_common.cuh"
+
 namespace {
-
-constexpr int CK = 16;  // input channels a slice: the square tiles' K step
-constexpr int TN = 16;  // output channels a thread
-constexpr int SMEM_MAX = 232448;  // bytes a block may use on an H100
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_group1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-// A cluster barrier in two halves: what a thread wrote (to its own or another
-// block's shared memory) before its arrive is seen by every thread of the
-// cluster after its wait.
-__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
 
 struct Args {
   const float* x0;
@@ -83,11 +69,6 @@ struct Args {
   int B, H, W, nb, rows;
 };
 
-template <class T>
-__device__ __forceinline__ T pick(int k, T a, T b, T c, T d) {  // no local copy of the argument struct
-  return k == 0 ? a : k == 1 ? b : k == 2 ? c : d;
-}
-
 // Issue the cp.async copies of one 16-channel input slice of one conv's
 // weights into a ring stage, in the order the compute reads them: [tap][channel
 // of the slice][Cout].
@@ -96,56 +77,6 @@ __device__ __forceinline__ void issue_slice(const float* __restrict__ w, int s, 
   for (int e = threadIdx.x; e < 9 * CK * C; e += THREADS) {
     const int n = e % C, r = e / C, cc = r % CK, tap = r / CK;
     cp_async4(ws + e, w + ((size_t)tap * C + s * CK + cc) * C + n);
-  }
-}
-
-// Elements c = threadIdx.x % G of the pixels threadIdx.x / G, + THREADS / G,
-// ..., walked without a division: pixel p is column x of row y (of the x0
-// slab, or of the band).
-template <int G, int THREADS>
-struct Walk {
-  int c, p, y, x;
-  __device__ explicit Walk(int W) : c(threadIdx.x % G), p(threadIdx.x / G), y(p / W), x(p - y * W) {}
-  __device__ __forceinline__ void next(int W) {
-    constexpr int STEP = THREADS / G;
-    p += STEP;
-    x += STEP;
-    while (x >= W) { x -= W; ++y; }
-  }
-};
-
-// One 16-channel input slice of a conv into acc (taps 0..8, channels of the
-// slice): with the slices ascending, the square tiles' order of FMAs.
-template <int C, int P>
-__device__ __forceinline__ void conv_slice(float (&acc)[P][TN], const float* xs, const float* ws,
-                                           const int (&off)[P], int rp, int n0) {
-  constexpr int XCS = C + 1;
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int delta = (tap / 3 - 1) * rp + tap % 3 - 1;
-    const float* xp[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i) xp[i] = xs + (off[i] + delta) * XCS;
-    const float* wrow = ws + tap * CK * C + n0;
-#pragma unroll
-    for (int cc = 0; cc < CK; ++cc) {
-      float v[P];
-#pragma unroll
-      for (int i = 0; i < P; ++i) v[i] = xp[i][cc];
-      float wv[TN];
-#pragma unroll
-      for (int q = 0; q < TN / 4; ++q) {
-        const float4 w4 = *reinterpret_cast<const float4*>(wrow + cc * C + 4 * q);
-        wv[4 * q] = w4.x;
-        wv[4 * q + 1] = w4.y;
-        wv[4 * q + 2] = w4.z;
-        wv[4 * q + 3] = w4.w;
-      }
-#pragma unroll
-      for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(v[i], wv[j], acc[i][j]);
-    }
   }
 }
 
@@ -208,7 +139,7 @@ __global__ void __launch_bounds__(THREADS, 1) residual_tail_kernel(const Args a)
     }
   }
   cluster_arrive();
-  cp_async_wait_group1();
+  cp_async_wait_group<1>();
   for (Walk<C, THREADS> s(a.W); s.p < nslab; s.next(a.W)) {  // ReLU on the copies this thread issued
     float* d = bufA + ((s.y + lo - y0 + 1) * rp + s.x + 1) * XCS + s.c;
     *d = fmaxf(*d, 0.0f);
@@ -224,7 +155,7 @@ __global__ void __launch_bounds__(THREADS, 1) residual_tail_kernel(const Args a)
       for (int t = 0; t < TN; ++t) acc[i][t] = 0.0f;
     for (int s = 0; s < NS; ++s) {
       const int j = k * NS + s;  // the weight slice, in stage j % 2
-      if (j > 0) cp_async_wait_group1();  // this thread's copies of slice j are in (slice j + 1's may not be)
+      if (j > 0) cp_async_wait_group<1>();  // this thread's copies of slice j are in (slice j + 1's may not be)
       __syncthreads();                    // and every thread's
       conv_slice<C, P>(acc, xs + s * CK, wst + (j & 1) * SSZ, off, rp, n0);
       __syncthreads();  // every thread is past stage j % 2: slice j + 2 goes there

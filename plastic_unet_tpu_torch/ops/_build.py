@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/plastic_unet_tpu_torch/`` beside the package, on first use. All
 sources are compiled at once, one ``nvcc`` process each, started together.
-The library name carries a hash of its source, so an edited source is
+The library name carries a hash of its source and of the headers
+(``csrc/*.cuh``) the sources share, so an edited source or header is
 rebuilt and a stale library is never loaded. Libraries are loaded with
 ``ctypes``; every C entry point returns ``cudaGetLastError()`` and
 :func:`check` turns a non-zero code into an exception.
@@ -45,7 +46,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path, named by a hash of its source, the shared headers of csrc/ and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}.{digest}.so"
 
 

@@ -35,9 +35,18 @@ The TPU kernel saves x2; the port never materialises it (the last conv fuses
 the ReLU) and needs only its sign: ``(out > 0) == (x2 > 0)``, so ``out``
 stands in. Under ``torch.no_grad()`` or ``inference_mode()`` nothing is kept.
 
-Backward (:func:`residual_tail_backward`). The reverse chain as four launches
-of the conv3x3 kernel in its input-gradient form (ops.conv3x3.conv3x3_dgrad)
-and four of ops.conv3x3_wgrad, every ReLU mask and skip sum fused:
+Backward (:func:`residual_tail_backward`). On CUDA tensors one of two
+routes, which :func:`tail_bwd_plan` picks from the shapes alone. Batches at
+101^2 x 16 from 6 samples and 50^2 x 32 from 9 (where the batch's pixels
+fill 30% of the fused kernel's threads on the card, and the dgrad below
+takes its square tiles) take one launch of ``csrc/residual_tail_backward.cu``
+and one of its sample reduction (:func:`residual_tail_backward_fused`): a
+cluster a sample and a band of rows a block, as the forward, the gradients
+between the convs in shared memory, each saved tensor read once. Everything
+else (B=1, and the 25^2, 12^2 and 6^2 levels) takes the reverse chain as
+four launches of the conv3x3 kernel in its input-gradient form
+(ops.conv3x3.conv3x3_dgrad) and four of ops.conv3x3_wgrad, every ReLU mask
+and skip sum fused (:func:`residual_tail_backward_eight`):
 
     d_pre21, d_x2 = dgrad(g, w22, in_gate=out, gate=pre21)   # d_x2 = g * (out > 0)
     dw22, db22    = wgrad(relu(pre21), d_x2)
@@ -51,9 +60,13 @@ and four of ops.conv3x3_wgrad, every ReLU mask and skip sum fused:
 d_x2 is written once, by the first launch as it loads ``g`` through the
 mask, because three later passes read it; the ReLUs of the wgrad inputs are
 applied on load. Weight gradients come back in torch layout (C, C, 3, 3).
+The fused kernel keeps the square tiles' order of arithmetic in dx0, so the
+two routes give the same dx0 bits; its weight and bias gradients sum in its
+own fixed order (pixels, then bands, then samples pairwise; no atomics), the
+same bits on every run but not the wgrad launches'.
 
 The TPU layout devices (pack_factor, worth_fusing, 128-lane padding) are not
-carried over. The backward keeps its eight launches at every shape.
+carried over.
 """
 
 from __future__ import annotations
@@ -80,6 +93,7 @@ from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, conv3x3_wgra
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"residual_tail_forward": [_V] * 13 + [_I] * 9 + [_V]}
+_BWD_SIGNATURES = {"residual_tail_backward": [_V] * 20 + [_I] * 9 + [_V]}
 # channels -> (pixels a thread, threads a block) of the kernel's tiling for them; a thread's 16 output
 # channels and the 16-channel input slices are fixed. Each was the fastest of a sweep at B=128 (PERF.md).
 FUSED_TILING = {16: (4, 384), 32: (4, 256)}
@@ -89,6 +103,13 @@ TAIL_FAMILIES = ("four", "fused")
 # (tail_route_sweep; PERF.md) the four launches were faster up to 0.30 at 101^2 x 16, 50^2 x 32, 50^2 x 16
 # and 25^2 x 32, the fused kernel from 0.40 on, but for a nearly empty second wave (1-2%).
 FUSED_MIN_FILL = 0.35
+BWD_FAMILIES = ("eight", "fused")
+# The fused backward from a batch whose pixels fill this share of the card's pixel slots on (measured as the
+# forward's). In chip_smoke.py phase 10's sweep of both backward routes (tail_bwd_route_sweep; PERF.md) the
+# fused kernel won from 0.302 at 101^2 x 16 (B=6; 0.252 lost), at 50^2 x 16 and 25^2 x 32 from 0.30 or
+# below, but at 50^2 x 32 only from 0.44 (B=12; B=9, 0.333, lost by 2.6%): no fill divides every shape, and
+# this one loses the least (0.35 would lose 10% at 101^2 x 16 B=6).
+BWD_MIN_FILL = 0.30
 
 
 class TailPlan(NamedTuple):
@@ -153,6 +174,70 @@ def tail_plan(b: int, h: int, w: int, c: int, *, family: str | None = None) -> T
     return fused if take else TailPlan("four")
 
 
+class TailBwdPlan(NamedTuple):
+    """How the tail's backward runs. ``family`` "eight": four conv3x3_dgrad
+    and four conv3x3_wgrad launches (the other fields 0). "fused": one launch
+    of ``csrc/residual_tail_backward.cu`` and its sample reduction, ``bands``
+    blocks a sample (one cluster), ``rows``, ``px`` and ``threads`` as in
+    :class:`TailPlan`; ``smem`` bytes a block (two band buffers, one
+    16-channel weight slice, the stage's 9C^2 + C sums); ``blocks`` the grid's;
+    ``workspace`` floats of the samples' partial sums (B, 4, 9C^2 + C)."""
+
+    family: str
+    bands: int = 0
+    rows: int = 0
+    px: int = 0
+    threads: int = 0
+    smem: int = 0
+    blocks: int = 0
+    workspace: int = 0
+
+
+def _bwd_sums(c: int) -> int:
+    """A stage's sums: dW (C, C, 3, 3) and db (C,)."""
+    return 9 * c * c + c
+
+
+def _bwd_fused_plan(b, h, w, c, bands) -> TailBwdPlan | None:
+    if c not in FUSED_TILING or not 1 <= bands <= min(h, SPLIT_MAX_KS):
+        return None
+    px, threads = FUSED_TILING[c]
+    rows = -(-h // bands)
+    if rows * w > _slots(px, threads, c):
+        return None
+    band = (((rows + 2) * (w + 1) + 1) * (c + 1) + 3) // 4 * 4
+    smem = 4 * (2 * band + 9 * 16 * c + (_bwd_sums(c) + 3) // 4 * 4)
+    if smem > SMEM_MAX:
+        return None
+    return TailBwdPlan("fused", bands, rows, px, threads, smem, b * bands, b * 4 * _bwd_sums(c))
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of its arguments, asked at every tail's backward
+def tail_bwd_plan(b: int, h: int, w: int, c: int, *, family: str | None = None) -> TailBwdPlan:
+    """The backward tail's route for a gradient (B, H, W, C); depends on the
+    shapes only. The fused kernel where conv3x3_plan(b, h, w, c, c, flip)
+    takes its square tiles (whose bits the fused kernel keeps in dx0; where
+    it takes whole samples, at 25^2 from B=124, the eight launches were the
+    faster), a tiling fits shared memory (the fewest bands whose rows fit
+    the thread grid) and the batch's B*H*W pixels fill at least
+    BWD_MIN_FILL of the card's pixel slots: 101^2 x 16 from B=6, 50^2 x 32
+    from B=9, 50^2 x 16 from B=25, 25^2 x 32 from B=33 to 123; everything
+    else the eight launches. ``family`` forces a route (raises where no
+    fused tiling fits)."""
+    if family not in (None,) + BWD_FAMILIES:
+        raise ValueError(f"tail_bwd_plan: family must be one of {BWD_FAMILIES}, got {family!r}")
+    if family == "eight":
+        return TailBwdPlan("eight")
+    fused = next((p for n in range(1, SPLIT_MAX_KS + 1) if (p := _bwd_fused_plan(b, h, w, c, n))), None)
+    if family == "fused":
+        if fused is None:
+            raise ValueError(f"tail_bwd_plan: no fused tiling for {(b, h, w, c)}")
+        return fused
+    take = (fused is not None and b * h * w >= BWD_MIN_FILL * NUM_SMS * _slots(fused.px, fused.threads, c)
+            and conv3x3_plan(b, h, w, c, c, True).family == "tile")
+    return fused if take else TailBwdPlan("eight")
+
+
 def residual_tail_plain(x0, w11, b11, w12, b12, w21, b21, w22, b22):
     """The plain PyTorch version (any device): the unfused block math.
     Weights are torch Conv2d weights (C, C, 3, 3)."""
@@ -198,13 +283,69 @@ def residual_tail_backward_plain(g, x0, pre11, x1, pre21, out, w11, w12, w21, w2
     return _backward(g, x0, pre11, x1, pre21, out, *ks, conv3x3_dgrad_plain, conv3x3_wgrad_plain)
 
 
+def residual_tail_backward_eight(g, x0, pre11, x1, pre21, out, k11, k12, k21, k22):
+    """The route :func:`tail_bwd_plan` calls "eight": four conv3x3_dgrad and
+    four conv3x3_wgrad launches (their plain versions for CPU tensors)."""
+    return _backward(g, x0, pre11, x1, pre21, out, k11, k12, k21, k22, conv3x3_dgrad, conv3x3_wgrad)
+
+
+def _launch_backward(g, x0, pre11, x1, pre21, out, ks):
+    """Check the operands, launch the fused backward and its sample reduction."""
+    if g.dim() != 4:
+        raise ValueError(f"residual_tail_backward_fused: g must be (B, H, W, C), got {tuple(g.shape)}")
+    b, h, w, c = g.shape
+    acts = (g, out, pre21, x1, pre11, x0)
+    for t, shape in [(t, (b, h, w, c)) for t in acts] + [(k, (3, 3, c, c)) for k in ks]:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"residual_tail_backward_fused: an operand is {tuple(t.shape)}, want {shape}")
+        if t.dtype != torch.float32 or t.device != g.device or not t.is_contiguous():
+            raise ValueError("residual_tail_backward_fused: inputs must be contiguous float32 on one CUDA device")
+    p = tail_bwd_plan(b, h, w, c, family="fused")
+    if b * p.bands > 2 ** 31 - 1:
+        raise ValueError(f"residual_tail_backward_fused: unsupported batch {b}")
+    dx0 = torch.empty_like(g)
+    ws = torch.empty((p.workspace,), dtype=g.dtype, device=g.device)
+    grads = [torch.empty(shape, dtype=g.dtype, device=g.device) for _ in range(4) for shape in ((c, c, 3, 3), (c,))]
+    lib = _build.library("residual_tail_backward", _BWD_SIGNATURES)
+    with torch.cuda.device(g.device):
+        code = lib.residual_tail_backward(
+            *(_build.ptr(t) for t in acts), *(_build.ptr(k) for k in reversed(ks)), _build.ptr(dx0),
+            _build.ptr(ws), *(_build.ptr(t) for t in grads), b, h, w, c, p.bands, p.rows, p.px, p.threads, p.smem,
+            _build.stream_of(g),
+        )
+    _build.check(code, "residual_tail_backward_fused")
+    dw22, db22, dw21, db21, dw12, db12, dw11, db11 = grads
+    return dx0, dw11, db11, dw12, db12, dw21, db21, dw22, db22
+
+
+def residual_tail_backward_fused(g, x0, pre11, x1, pre21, out, k11, k12, k21, k22):
+    """The route :func:`tail_bwd_plan` calls "fused": one launch of
+    ``csrc/residual_tail_backward.cu`` and one of its sample reduction; the
+    arguments and results of :func:`residual_tail_backward`. CUDA tensors
+    launch the kernel or raise; CPU tensors take the plain chain."""
+    if g.device.type == "cpu":
+        return _backward(g, x0, pre11, x1, pre21, out, k11, k12, k21, k22, conv3x3_dgrad_plain,
+                         conv3x3_wgrad_plain)
+    if g.device.type != "cuda":
+        raise RuntimeError(f"residual_tail_backward_fused: no kernel for device {g.device}")
+    res = _launch_backward(g, x0, pre11, x1, pre21, out, (k11, k12, k21, k22))
+    residual_tail_backward_fused.launches += 1
+    return res
+
+
 def residual_tail_backward(g, x0, pre11, x1, pre21, out, k11, k12, k21, k22):
     """(dx0, dw11, db11, dw12, db12, dw21, db21, dw22, db22) from the output
     gradient ``g`` and what the forward kept; ``k*`` are the (3, 3, C, C)
     weights the forward read. Weight gradients are (C, C, 3, 3). CUDA tensors
-    take four dgrad and four wgrad launches or raise; CPU tensors the plain
-    versions."""
-    res = _backward(g, x0, pre11, x1, pre21, out, k11, k12, k21, k22, conv3x3_dgrad, conv3x3_wgrad)
+    take the route of :func:`tail_bwd_plan` (one fused launch and its sample
+    reduction, or four dgrad and four wgrad launches) or raise; CPU tensors
+    the plain versions."""
+    args = (g, x0, pre11, x1, pre21, out, k11, k12, k21, k22)
+    plan = tail_bwd_plan(*g.shape) if g.dim() == 4 else TailBwdPlan("eight")
+    if plan.family == "fused":
+        res = residual_tail_backward_fused(*args)
+    else:
+        res = residual_tail_backward_eight(*args)
     if g.device.type == "cuda":
         residual_tail_backward.launches += 1
     return res
@@ -311,3 +452,4 @@ def residual_tail_ranges(x0, w11, b11, w12, b12, w21, b21, w22, b22):
 residual_tail.launches = 0
 residual_tail_fused.launches = 0
 residual_tail_backward.launches = 0
+residual_tail_backward_fused.launches = 0

@@ -282,7 +282,7 @@ def test_build_reports_missing_nvcc_and_cuda_errors(tmp_path, monkeypatch):
         _build.check(209, "conv3x3")
     _build.check(0, "conv3x3")
     names = sorted(p.name.split(".")[0] for p in _build.CSRC.glob("*.cu"))
-    assert names == ["conv3x3", "conv3x3_wgrad", "plastic_head", "residual_tail"]
+    assert names == ["conv3x3", "conv3x3_wgrad", "plastic_head", "residual_tail", "residual_tail_backward"]
 
 
 def test_numpy_iou_metrics_match_jax():
