@@ -142,6 +142,33 @@ is non-zero:
      artifact equal to the live int8 forward; HTTP /predict from the tta4
      artifact equal to MaskPredictor(tta4) bit for bit; export and load
      seconds, the artifacts' tiles/s beside the live path's.
+  14. the UNetPRes options at full width (neurons=16, nbf=101, 101x101
+     tiles, seeded weights): trunk_pad=128 moves the tails to the padded
+     track (PAD_LEVELS: 128^2x16 ... 8^2x256), where tail_plan and
+     tail_bwd_plan fuse 128^2x16 (clusters of 13 blocks of ~229 KB) and
+     64^2x32 at B=128: the fused forward == the four conv3x3 launches and
+     the fused backward's dx0 == the eight launches', bit for bit, each
+     within phase 2's tolerance of its plain version, dW and db no farther
+     from float64 than the eight launches', the NaN canary, and each
+     one's time beside the other route, plain, cuDNN and the bound; then
+     trunk_pad=128 with coord_conv: serving 512 tiles at chunk 128
+     (tiles/s, launches by route: 4 fused, 20 conv3x3 a chunk), the
+     forward on 4 tiles against the CPU port (atol 1e-5 x max(1,
+     max|ref|)), 8 B=1 steps, the CUDA graph == eager bit for bit, and a
+     lanes=128 eager step beside the default model's in ms. remat_trunk:
+     a lanes=128 and a B=1 step at dropout 0.5 from an explicit generator
+     give the plain step's loss, activ and gradients bit for bit, with
+     every tail launched twice (the recompute) and their peak memory
+     (torch.cuda.max_memory_allocated); 8 B=1 steps eager and as a CUDA
+     graph == the plain eager run bit for bit. batch_norm: conv3x3_same
+     (the BN trunks' differentiable conv) against autograd of the plain
+     conv; a B=128 train-mode forward and backward (launches: the 20 convs
+     of the BN trunks on conv3x3_same, the 4 UpRes middles by the tail
+     routes); at B=2 the train-mode outputs, running statistics and
+     gradients and the eval forward against the CPU port (atol 1e-5 and
+     1e-4 x max(1, max|ref|)). fold_hires, patch_conv and fast_dw: the
+     default model's loss, activ and gradients bit for bit. Finally every
+     kernel is in the kernels line with every key.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
 belong to the entry's "shape"; "launches" counts the serving request of
@@ -164,7 +191,16 @@ B=128: launches per eager step of the lanes=128 path (phase 9; no B=1 step
 takes it), eight_launch_ms the eight launches on the same inputs,
 library_chain_ms cuDNN's chain through autograd (several calls, so
 library_ms is null), the _50 keys at 50x50x32, route_sweep phase 10's rows
-[H, C, B, eight ms, fused ms, tail_bwd_plan's route].
+[H, C, B, eight ms, fused ms, tail_bwd_plan's route]. Phase 14 adds to
+both the padded track's fused shapes at B=128 (keys ending in _128 for
+128x128x16 and _64 for 64x64x32: ms, four_launch_ms or eight_launch_ms,
+plain_ms, bound_ms, cudnn_ms or library_chain_ms, max_abs_err), and to
+every entry the launches of its paths: launches_pad128_chunk (a padded
+serving chunk), launches_pad128_step_b1 and launches_pad128_step_lanes (one
+padded eager step at B=1 and at lanes=128), launches_plain_step_lanes,
+launches_remat_step_lanes, launches_plain_step_b1, launches_remat_step_b1
+(one forward and backward, dropout 0.5, without and with remat_trunk),
+launches_bn_step_b128 (a batch_norm forward and backward at B=128).
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -204,20 +240,28 @@ FUSED_TAIL_CHECKS = FUSED_TAIL_SHAPES + [(50, 16), (25, 32)]  # and the epoch-22
 TAIL_SWEEP_BS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 64, 128)  # phase 6: both tail routes timed at these B
 
 
-def chunk_counts(neurons: int = 16, b: int = B) -> dict:
+KERNELS = ("plastic_head", "conv3x3", "residual_tail", "conv3x3_dgrad", "conv3x3_wgrad", "residual_tail_backward",
+           "residual_tail_backward_fused")  # the kernels line's entries
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
+
+
+def chunk_counts(neurons: int = 16, b: int = B, levels=LEVELS) -> dict:
     """Forward launches of one UNetPRes chunk of b samples: 1 head and 9
     tails, each tail one launch of the fused kernel or four conv3x3
-    launches, as ops.residual_tail.tail_plan routes its shape."""
+    launches, as ops.residual_tail.tail_plan routes its shape. ``levels``:
+    the track's sides (PAD_LEVELS for trunk_pad=128), TAILS_PER_CHUNK's
+    counts in order."""
     from plastic_unet_tpu_torch.ops.residual_tail import tail_plan
 
-    fused = sum(TAILS_PER_CHUNK[hw] for i, (hw, _) in enumerate(LEVELS)
+    fused = sum(n for i, (n, (hw, _)) in enumerate(zip(TAILS_PER_CHUNK.values(), levels))
                 if tail_plan(b, hw, hw, neurons * 2 ** i).family == "fused")
     tails = sum(TAILS_PER_CHUNK.values())
     return {"plastic_head": HEAD_PER_CHUNK, "residual_tail": tails, "residual_tail_fused": fused,
             "conv3x3": 4 * (tails - fused)}
 
 
-def lane_step_counts(lanes: int, neurons: int = 16) -> dict:
+def lane_step_counts(lanes: int, neurons: int = 16, levels=LEVELS) -> dict:
     """Launches of one eager training step of ``lanes`` samples: the forward
     of chunk_counts and 9 tail backwards, each one launch of the fused
     backward or four dgrad and four wgrad launches, as
@@ -225,8 +269,8 @@ def lane_step_counts(lanes: int, neurons: int = 16) -> dict:
     from plastic_unet_tpu_torch.ops.residual_tail import tail_bwd_plan
 
     counts = dict.fromkeys(COUNTED, 0)
-    counts.update(chunk_counts(neurons, lanes))
-    fused = sum(TAILS_PER_CHUNK[hw] for i, (hw, _) in enumerate(LEVELS)
+    counts.update(chunk_counts(neurons, lanes, levels))
+    fused = sum(n for i, (n, (hw, _)) in enumerate(zip(TAILS_PER_CHUNK.values(), levels))
                 if tail_bwd_plan(lanes, hw, hw, neurons * 2 ** i).family == "fused")
     tails = sum(TAILS_PER_CHUNK.values())
     counts.update({"residual_tail_backward": tails, "residual_tail_backward_fused": fused,
@@ -1263,13 +1307,14 @@ def train_stream(steps: int, lanes: int, seed: int):
     return reshape_stream(x, torch.from_numpy(y[:, 0]), lanes)
 
 
-def train_run(rule, device, X, Y, *, graph, dropout=0.0, lanes=1, drop_seed=None):
-    """A seeded full-width model trained over the stream; (state, losses)."""
+def train_run(rule, device, X, Y, *, graph, dropout=0.0, lanes=1, drop_seed=None, **options):
+    """A seeded full-width model (``options``: UNetPRes's, e.g. trunk_pad)
+    trained over the stream; (state, losses)."""
     from plastic_unet_tpu_torch.models.unet_res import UNetPRes
     from plastic_unet_tpu_torch.train.loop import create_train_state, make_epoch_fn
 
     model = UNetPRes(neurons=16, nbf=101, rule=rule, dropout_ratio=dropout,
-                     generator=torch.Generator().manual_seed(3))
+                     generator=torch.Generator().manual_seed(3), **options)
     gen = None if drop_seed is None else torch.Generator(device=device).manual_seed(drop_seed)
     state = create_train_state(model, TRAIN_LR, TRAIN_GAMMA, TRAIN_STEP_SIZE, lanes=lanes, generator=gen,
                                device=device)
@@ -2265,6 +2310,407 @@ def phase_export(dev, smi, live_rate):
     return counts
 
 
+# --------------------------------------------------------------------------- phase 14
+
+PAD = 128  # trunk_pad of the JAX package's aligned track
+PAD_LEVELS = [(128, 16), (64, 32), (32, 64), (16, 128), (8, 256)]  # (H=W, C) of the padded neurons=16 track
+PAD_FUSED_SHAPES = [(128, 16), (64, 32)]  # where tail_plan and tail_bwd_plan fuse on it at B=128
+OPTION_TILES = 512  # the padded serving request: 4 chunks
+
+
+def tail_bounds(b, hw, c, pk) -> tuple:
+    """((forward bound ms, by), (backward bound ms, by)) of one tail, counted as phases 6 and 10 count them."""
+    conv_flops, act = 2 * 9 * c * c * b * hw * hw, 4 * b * hw * hw * c
+    return (bound_ms(4 * conv_flops, 2 * act + 4 * 4 * (9 * c * c + c), pk),
+            bound_ms(8 * conv_flops, 7 * act + 8 * 4 * (9 * c * c + c), pk))
+
+
+def phase_padded_tails(dev, pk) -> dict:
+    """Phase 14 (1): the fused tail forward and backward at the padded track's fused shapes, B=128 (at
+    128^2 x 16 a cluster of 13 blocks of ~229 KB each): forward == the four conv3x3 launches bit for
+    bit (out, and with pre11, x1, pre21 kept), backward dx0 == the eight launches', every output within
+    phase 2's tolerance of the plain versions, dW and db no farther from float64 than the eight
+    launches', two runs alike, the NaN canary (16-byte aligned and off it); then each one's time
+    beside the other route, the plain version, cuDNN and the bound. Returns the kernels' keys."""
+    from plastic_unet_tpu_torch.ops import residual_tail as rt
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_plan, hwio
+    from plastic_unet_tpu_torch.utils.precision import matmul_precision, training_numerics
+
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    fwd, bwd = {}, {}
+    names = ["dx0"] + ["d" + n for n in "w11 b11 w12 b12 w21 b21 w22 b22".split()]
+    for hw, c in PAD_FUSED_SHAPES:
+        fp, bp = rt.tail_plan(B, hw, hw, c), rt.tail_bwd_plan(B, hw, hw, c)
+        check(fp.family == "fused" and bp.family == "fused" and conv3x3_plan(B, hw, hw, c, c, True).family == "tile",
+              f"{hw}^2x{c} B={B}: tail_plan {fp.family}, tail_bwd_plan {bp.family}")
+        what = f"{hw}^2x{c} B={B}"
+        print(f"[14] fused tail at {what}: forward plan (bands, rows, px, threads, smem, blocks) "
+              f"{tuple(fp)[1:]}, backward {tuple(bp)[1:7]}", flush=True)
+        with torch.no_grad(), matmul_precision("parity"):
+            args, gout = tail_operands(rnd, B, hw, c)
+            saved = tail_saved(args)
+            ws = args[1::2]
+            ks = [hwio(w) for w in ws]
+            kargs = (args[0], ks[0], args[2], ks[1], args[4], ks[2], args[6], ks[3], args[8])
+            four = rt.residual_tail_four(*kargs)
+            kept = rt.residual_tail_fused(*kargs, keep=True)
+            alone = rt.residual_tail_fused(*kargs)
+            check(all(bool(torch.equal(a, q)) for a, q in zip(kept, four)),
+                  f"residual_tail_fused {what}: out, pre11, x1, pre21 differ from the four launches' in some bit")
+            check(bool(torch.equal(alone[0], four[0])) and bool(torch.equal(rt.residual_tail_fused(*kargs)[0], alone[0])),
+                  f"residual_tail_fused {what}: out alone differs from the four launches', or between two runs")
+            e_fwd, tol = max_err(kept[0], saved[4])
+            check(e_fwd <= tol, f"residual_tail_fused {what}: max|diff| {e_fwd:.3g} > {tol:.3g} against the plain version")
+            fused = rt.residual_tail_backward_fused(gout, *saved, *ks)
+            again = rt.residual_tail_backward_fused(gout, *saved, *ks)
+            eight = rt.residual_tail_backward_eight(gout, *saved, *ks)
+            plain = rt.residual_tail_backward_plain(gout, *saved, *ws)
+            check(all(bool(torch.equal(x, y)) for x, y in zip(fused, again)),
+                  f"residual_tail_backward_fused {what}: two runs differ in some bit")
+            check(bool(torch.equal(fused[0], eight[0])), f"residual_tail_backward_fused {what}: dx0 differs from the "
+                  f"eight launches' in some bit")
+            e_bwd = 0.0
+            for nm, gt, rf in zip(names, fused, plain):
+                e, tol = max_err(gt, rf)
+                check(e <= tol, f"residual_tail_backward_fused {what} {nm}: max|diff| {e:.3g} > {tol:.3g}")
+                e_bwd = max(e_bwd, e)
+            p64 = rt.residual_tail_backward_plain(gout.double(), *(t.double() for t in saved), *(w.double() for w in ws))
+            far = [max(float((x.double() - q).abs().max()) for x, q in zip(r[1:], p64[1:])) for r in (fused, eight)]
+            check(far[0] <= far[1], f"residual_tail_backward_fused {what}: dW, db {far[0]:.3g} from float64, the "
+                  f"eight launches' {far[1]:.3g}")
+            del p64, again
+            for offset in (4, 1):
+                got = canary(rt.residual_tail_fused, *kargs, keep=True, offset=offset)
+                for a, q in zip(got, four):
+                    e, tol = max_err(a, q)
+                    check(e <= tol, f"canary residual_tail_fused {what} (offset {offset}): max|diff| {e:.3g}")
+                got = canary(rt.residual_tail_backward_fused, gout, *saved, *ks, offset=offset)
+                for a, q in zip(got, plain):
+                    e, tol = max_err(a, q)
+                    check(e <= tol, f"canary residual_tail_backward_fused {what} (offset {offset}): max|diff| {e:.3g}")
+                del got
+            print(f"[14] {what}: the fused forward == four conv3x3 launches bit for bit (out; out, pre11, x1, pre21 "
+                  f"kept), max|diff| {e_fwd:.3g} against the plain version; the fused backward's dx0 == the eight "
+                  f"launches' bit for bit, max|diff| {e_bwd:.3g} against the plain chain, dW, db from float64 "
+                  f"{far[0]:.3g} (eight launches {far[1]:.3g}); two runs alike; the NaN canary finite and within "
+                  f"tolerance", flush=True)
+            (fb, fby), (bb, bby) = tail_bounds(B, hw, c, pk)
+            f = dict(ms=time_ms(lambda: rt.residual_tail_fused(*kargs))[0],
+                     four_ms=time_ms(lambda: rt.residual_tail_four(*kargs))[0],
+                     plain_ms=time_ms(lambda: rt.residual_tail_plain(*args))[0],
+                     cudnn_ms=time_ms(lambda: cudnn_tail_nhwc(*args))[0], bound_ms=fb, bound_by=fby, max_abs_err=e_fwd)
+            k = dict(ms=time_ms(lambda: rt.residual_tail_backward_fused(gout, *saved, *ks))[0],
+                     eight_ms=time_ms(lambda: rt.residual_tail_backward_eight(gout, *saved, *ks))[0],
+                     plain_ms=time_ms(lambda: rt.residual_tail_backward_plain(gout, *saved, *ws))[0],
+                     bound_ms=bb, bound_by=bby, max_abs_err=e_bwd)
+            leaves = [t.clone().requires_grad_() for t in args]
+            with torch.enable_grad(), training_numerics():
+                lib_out = cudnn_tail_nhwc(*leaves)
+                k["library_chain_ms"] = time_ms(lambda: torch.autograd.grad(lib_out, leaves, gout, retain_graph=True))[0]
+            del leaves, lib_out, args, gout, saved, kargs, four, kept, alone, fused, eight, plain
+        fwd[hw], bwd[hw] = f, k
+        print(f"[14] residual_tail {what} [fused]: {f['ms']:.4f} ms against four conv3x3 launches "
+              f"{f['four_ms']:.4f} ms ({f['four_ms'] / f['ms']:.3f}x), plain {f['plain_ms']:.4f} ms, cuDNN chain "
+              f"{f['cudnn_ms']:.4f} ms, bound {fb:.5f} ms ({fby}), {fb / f['ms']:.1%} of bound", flush=True)
+        print(f"[14] residual_tail_backward {what} [fused]: {k['ms']:.4f} ms against the eight launches "
+              f"{k['eight_ms']:.4f} ms ({k['eight_ms'] / k['ms']:.3f}x), plain {k['plain_ms']:.4f} ms, cuDNN's chain "
+              f"by autograd {k['library_chain_ms']:.4f} ms, bound {bb:.5f} ms ({bby}), {bb / k['ms']:.1%} of bound",
+              flush=True)
+    keys = {"residual_tail": {}, "residual_tail_backward_fused": {}}
+    for hw, _ in PAD_FUSED_SHAPES:
+        f, k = fwd[hw], bwd[hw]
+        keys["residual_tail"].update({f"ms_{hw}": f["ms"], f"four_launch_ms_{hw}": f["four_ms"],
+                                      f"plain_ms_{hw}": f["plain_ms"], f"bound_ms_{hw}": f["bound_ms"],
+                                      f"cudnn_ms_{hw}": f["cudnn_ms"], f"max_abs_err_{hw}": f["max_abs_err"]})
+        keys["residual_tail_backward_fused"].update({
+            f"ms_{hw}": k["ms"], f"eight_launch_ms_{hw}": k["eight_ms"], f"plain_ms_{hw}": k["plain_ms"],
+            f"bound_ms_{hw}": k["bound_ms"], f"library_chain_ms_{hw}": k["library_chain_ms"],
+            f"max_abs_err_{hw}": k["max_abs_err"]})
+    return keys
+
+
+def grads_of(model, x, hebb, mask, generator=None):
+    """(loss, activ, every parameter's gradient or None) of one train-mode forward and backward."""
+    from plastic_unet_tpu_torch.ops.losses import bce_logits
+
+    model.zero_grad(set_to_none=True)
+    out = model.train()(x, hebb, generator=generator)
+    loss = bce_logits(out.activ, mask)
+    loss.backward()
+    return loss.detach(), out, [p.grad for p in model.parameters()]
+
+
+def same_bits(a, b) -> bool:
+    return len(a) == len(b) and all((x is None and y is None) or (x is not None and y is not None
+                                                                  and bool(torch.equal(x, y))) for x, y in zip(a, b))
+
+
+def phase_model_options(dev, smi, name, serving_tiles_s):
+    """Phase 14: the UNetPRes options at full width (neurons=16, nbf=101, 101x101 tiles, seeded
+    weights). Returns ({kernel: keys for its entry}, {path: launches})."""
+    import torch.nn.functional as F
+
+    from plastic_unet_tpu_torch.eval.evaluate import predict_masks
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_plain, conv3x3_same, hwio
+    from plastic_unet_tpu_torch.ops.residual_tail import tail_bwd_plan, tail_plan
+    from plastic_unet_tpu_torch.train.loop import create_train_state, make_train_step
+    from plastic_unet_tpu_torch.utils.precision import matmul_precision, training_numerics
+
+    t0 = time.time()
+    pk = peaks(name)
+    counts = {}
+    keys = phase_padded_tails(dev, pk)
+
+    def model(seed=14, **options):
+        return UNetPRes(neurons=16, nbf=101, generator=torch.Generator().manual_seed(seed), **options)
+
+    # (1) trunk_pad=128 with coord_conv: serving, the forward against the CPU port, training
+    padded = dict(trunk_pad=PAD, coord_conv=True)
+    pm = model(**padded).to(dev).eval()
+    xs = np.random.default_rng(14).random((OPTION_TILES, 101, 101, 1), dtype=np.float32)
+    predict_masks(pm, xs[:B], device=dev)  # builds nothing new; warms cuDNN's plans for the padded shapes
+    torch.cuda.synchronize()
+    reset_counts()
+    masks = predict_masks(pm, xs, device=dev)
+    torch.cuda.synchronize()
+    chunks = OPTION_TILES // B
+    counts["pad128_chunk"] = {k: v // chunks for k, v in expect_launches(
+        f"MAIN PATH (trunk_pad={PAD}, coord_conv): serving {OPTION_TILES} tiles at chunk {B}",
+        scaled(chunk_counts(16, B, PAD_LEVELS), chunks), 14).items()}
+    check(tuple(masks.shape) == (OPTION_TILES, 101, 101) and bool(torch.isfinite(masks).all()),
+          f"trunk_pad={PAD}: masks {tuple(masks.shape)} or non-finite")
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        predict_masks(pm, xs, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    pad_tiles_s = OPTION_TILES / float(np.median(secs))
+    fb, _ = bound_ms(forward_flops(16, PAD, 101) * B, 0.0, pk)
+    print(f"[14] serving trunk_pad={PAD} + coord_conv, neurons=16, chunk {B}: {pad_tiles_s:.1f} tiles/s (host clock, "
+          f"median of 3, {OPTION_TILES} tiles; the default model in phase 6: {serving_tiles_s:.1f}, "
+          f"{pad_tiles_s / serving_tiles_s:.3f}x); forward bound forward_flops(16, {PAD}, 101) = "
+          f"{forward_flops(16, PAD, 101) / 1e9:.3f} GFLOP/tile -> {fb:.3f} ms a chunk at the fp32 peak "
+          f"({forward_flops(16, PAD, 101) / forward_flops(16):.3f}x the default's); card: {smi}", flush=True)
+
+    rng = np.random.default_rng(15)
+    x4 = torch.from_numpy(rng.random((4, 101, 101, 1), dtype=np.float32))
+    h4 = torch.from_numpy((rng.standard_normal((4, 101, 101)) * 0.05).astype(np.float32))
+    cpu = copy.deepcopy(pm).cpu()
+    with torch.inference_mode(), matmul_precision("parity"):
+        got, ref = pm(x4.to(dev), h4.to(dev)), cpu(x4, h4)
+    errs = {}
+    for what, a, r in zip(("activ", "activout", "hebb"), got, ref):
+        a = a.cpu()
+        check(bool(torch.isfinite(a).all()) and tuple(a.shape) == (4, 101, 101), f"trunk_pad: bad {what}")
+        errs[what] = float((a - r).abs().max())
+        tol = 1e-5 * max(1.0, float(r.abs().max()))
+        check(errs[what] <= tol, f"trunk_pad={PAD} coord_conv: {what} card vs CPU port max|diff| {errs[what]:.3g} > {tol:.3g}")
+    print(f"[14] trunk_pad={PAD} + coord_conv forward, 4 tiles, card vs CPU port: max|diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + " (atol 1e-5 x max(1, max|ref|))", flush=True)
+    del pm, cpu, masks
+
+    X, Y = train_stream(TRAIN_STEPS, 1, seed=31)
+    reset_counts()
+    e_state, e_losses = train_run("oja", dev, X, Y, graph=False, **padded)
+    torch.cuda.synchronize()
+    per_step = lane_step_counts(1, 16, PAD_LEVELS)
+    check(read_counts() == scaled(per_step, TRAIN_STEPS), f"trunk_pad B=1: launches {read_counts()} != "
+          f"{scaled(per_step, TRAIN_STEPS)}")
+    counts["pad128_step_b1"] = per_step
+    g_state, g_losses = train_run("oja", dev, X, Y, graph=None, **padded)
+    check(bool(torch.isfinite(e_losses).all()) and bool(torch.equal(g_losses, e_losses))
+          and same_bits(list(g_state.model.parameters()), list(e_state.model.parameters()))
+          and bool(torch.equal(g_state.hebb, e_state.hebb)),
+          f"trunk_pad={PAD} B=1: the graph's losses, parameters or trace differ from eager")
+    print(f"[14] trunk_pad={PAD} + coord_conv, B=1, {TRAIN_STEPS} steps: the CUDA graph == eager bit for bit (losses "
+          f"{[round(v, 6) for v in e_losses.tolist()]}, parameters, trace); launches per eager step "
+          f"{({k: v for k, v in per_step.items() if v})}", flush=True)
+    del e_state, g_state
+
+    Xl, Yl = train_stream(2, B, seed=32)
+    Xl, Yl = Xl.to(dev), Yl.to(dev)
+    step = make_train_step()
+    lane = {}
+    for label, opts in (("default", {}), (f"trunk_pad={PAD} + coord_conv", padded)):
+        st = create_train_state(model(3, dropout_ratio=0.0, **opts), TRAIN_LR, TRAIN_GAMMA, 1e6, lanes=B, device=dev)
+        step(st, (Xl[0], Yl[0]))
+        torch.cuda.synchronize()
+        reset_counts()
+        step(st, (Xl[1], Yl[1]))
+        torch.cuda.synchronize()
+        c = read_counts()
+        secs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            for i in range(4):
+                step(st, (Xl[i % 2], Yl[i % 2]))
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t) / 4)
+        lane[label] = (float(np.median(secs)) * 1e3, c)
+        del st
+    pad_ms, c = lane[f"trunk_pad={PAD} + coord_conv"]
+    want = lane_step_counts(B, 16, PAD_LEVELS)
+    check(c == want, f"trunk_pad lanes={B}: launches of one eager step {c} != {want}")
+    counts["pad128_step_lanes"] = c
+    sb, _ = bound_ms((forward_flops(16, PAD, 101) + backward_flops(16, PAD, 101)) * B, 0.0, pk)
+    print(f"[14] lanes={B} eager step, neurons=16 (host clock, 4 steps, median of 3): trunk_pad={PAD} + coord_conv "
+          f"{pad_ms:.2f} ms ({B / pad_ms * 1e3:.1f} samples/s; bound {sb:.2f} ms) against the default model "
+          f"{lane['default'][0]:.2f} ms in this phase: {pad_ms / lane['default'][0]:.3f}x; "
+          f"launches per step {({k: v for k, v in c.items() if v})}", flush=True)
+
+    # (2) remat_trunk: the same loss and gradients bit for bit, less memory
+    mem = {}
+    with training_numerics():
+        for lanes, seed in ((B, 33), (1, 34)):
+            xb, yb = train_stream(1, lanes, seed=seed)
+            xb, yb = xb[0].to(dev), yb[0].to(dev)
+            runs = {}
+            for remat in (False, True):
+                m = model(3, dropout_ratio=0.5, remat_trunk=remat).to(dev)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_counts()
+                res = grads_of(m, xb, m.initial_zero_hebb(lanes, device=dev), yb,
+                               torch.Generator(device=dev).manual_seed(seed))
+                torch.cuda.synchronize()
+                runs[remat] = res
+                mem[(lanes, remat)] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+                counts[f"{'remat' if remat else 'plain'}_step_{'lanes' if lanes > 1 else 'b1'}"] = read_counts()
+                del m
+            (l0, o0, g0), (l1, o1, g1) = runs[False], runs[True]
+            check(bool(torch.equal(l0, l1)) and bool(torch.equal(o0.activ, o1.activ)) and same_bits(g0, g1),
+                  f"remat_trunk lanes={lanes}, dropout 0.5: loss, activ or gradients differ from the plain step's")
+            plain_c, remat_c = counts[f"plain_step_{'lanes' if lanes > 1 else 'b1'}"], \
+                counts[f"remat_step_{'lanes' if lanes > 1 else 'b1'}"]
+            for k in ("residual_tail", "residual_tail_fused", "conv3x3"):  # the backward recomputes every tail
+                check(remat_c[k] == 2 * plain_c[k], f"remat_trunk lanes={lanes}: {k} {remat_c[k]} != 2 x {plain_c[k]}")
+            print(f"[14] remat_trunk lanes={lanes}, dropout 0.5 (explicit generator): loss, activ and all "
+                  f"{sum(g is not None for g in g0)} gradients == the plain step's bit for bit; peak memory above "
+                  f"the model {mem[(lanes, True)]:.1f} MiB against {mem[(lanes, False)]:.1f} MiB "
+                  f"({mem[(lanes, True)] / mem[(lanes, False)]:.3f}x; torch.cuda.max_memory_allocated); launches "
+                  f"{({k: v for k, v in remat_c.items() if v})} (plain {({k: v for k, v in plain_c.items() if v})})",
+                  flush=True)
+            del runs, l0, o0, g0, l1, o1, g1
+    p_state, p_losses = train_run("oja", dev, X, Y, graph=False, dropout=0.5, drop_seed=35)
+    r_state, r_losses = train_run("oja", dev, X, Y, graph=False, dropout=0.5, drop_seed=35, remat_trunk=True)
+    rg_state, rg_losses = train_run("oja", dev, X, Y, graph=None, dropout=0.5, drop_seed=35, remat_trunk=True)
+    for label, (st, ls) in (("eager", (r_state, r_losses)), ("graph", (rg_state, rg_losses))):
+        check(bool(torch.equal(ls, p_losses)) and bool(torch.equal(st.hebb, p_state.hebb))
+              and same_bits(list(st.model.parameters()), list(p_state.model.parameters())),
+              f"remat_trunk B=1 {label}: losses, parameters or trace differ from the plain eager run")
+    print(f"[14] remat_trunk B=1, dropout 0.5, {TRAIN_STEPS} steps: eager and the CUDA graph == the plain eager run "
+          f"bit for bit (losses, parameters, trace); graph == eager", flush=True)
+    del p_state, r_state, rg_state
+
+    # (3) batch_norm: the single-conv wrapper on the card, the BN model against the CPU port
+    g = torch.Generator(device=dev).manual_seed(36)
+    worst = 0.0
+    for b, hw, c in ((B, 101, 16), (B, 50, 32), (2, 12, 128), (1, 6, 256)):
+        x = torch.randn(b, hw, hw, c, generator=g, device=dev)
+        w = torch.randn(c, c, 3, 3, generator=g, device=dev) / (3 * c ** 0.5)
+        bias = torch.randn(c, generator=g, device=dev) * 0.1
+        gout = torch.randn(b, hw, hw, c, generator=g, device=dev)
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        ref_leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        with matmul_precision("parity"):
+            out = conv3x3_same(*leaves)
+            got = (out,) + torch.autograd.grad(out, leaves, gout)
+            ref_out = conv3x3_plain(ref_leaves[0], hwio(ref_leaves[1]), ref_leaves[2])
+            ref = (ref_out,) + torch.autograd.grad(ref_out, ref_leaves, gout)
+        for what, a, r in zip(("out", "dx", "dW", "db"), got, ref):
+            e, tol = max_err(a.detach(), r.detach())
+            check(e <= tol, f"conv3x3_same B={b} {hw}^2x{c} {what}: max|diff| {e:.3g} > {tol:.3g}")
+            worst = max(worst, e)
+        del leaves, ref_leaves, out, got, ref, ref_out
+    print(f"[14] conv3x3_same (the BN trunks' differentiable conv: conv3x3 forward, conv3x3_dgrad and conv3x3_wgrad "
+          f"backward) against autograd of the plain conv, out, dx, dW, db at 4 shapes: max|diff| {worst:.3g}",
+          flush=True)
+
+    bn = model(37, dropout_ratio=0.0, batch_norm=True)
+    cpu = copy.deepcopy(bn)
+    bn = bn.to(dev)
+    xb, yb = train_stream(1, B, seed=38)
+    xb, yb = xb[0].to(dev), yb[0].to(dev)
+    with matmul_precision("parity"):
+        reset_counts()
+        loss, out, grads = grads_of(bn, xb, bn.initial_zero_hebb(B, device=dev), yb)
+        torch.cuda.synchronize()
+        bn_counts = read_counts()
+        check(bool(torch.isfinite(out.activ).all()) and all(g_ is None or bool(torch.isfinite(g_).all()) for g_ in grads),
+              "batch_norm B=128: non-finite outputs or gradients")
+        # the 5 BN trunks: 4 convs each on conv3x3_same; the 4 UpRes middles (no BN) by the tail routes
+        ups = [(hw, 16 * 2 ** i) for i, (hw, _) in enumerate(LEVELS[:4])]
+        fused_f = sum(tail_plan(B, hw, hw, c).family == "fused" for hw, c in ups)
+        fused_b = sum(tail_bwd_plan(B, hw, hw, c).family == "fused" for hw, c in ups)
+        want = dict.fromkeys(COUNTED, 0)
+        want.update({"plastic_head": 1, "residual_tail": 4, "residual_tail_fused": fused_f,
+                     "conv3x3": 20 + 4 * (4 - fused_f), "residual_tail_backward": 4,
+                     "residual_tail_backward_fused": fused_b, "conv3x3_dgrad": 20 + 4 * (4 - fused_b),
+                     "conv3x3_wgrad": 20 + 4 * (4 - fused_b)})
+        check(bn_counts == want, f"batch_norm B={B}: launches {bn_counts} != {want}")
+        counts["bn_step_b128"] = bn_counts
+        bn_ms = time_ms(lambda: grads_of(bn, xb, bn.initial_zero_hebb(B, device=dev), yb), reps=5, warmup=1)[0]
+    print(f"[14] batch_norm B={B}, train mode, forward and backward: finite, {bn_ms:.2f} ms (device time); launches "
+          f"{({k: v for k, v in bn_counts.items() if v})} (20 convs of the 5 BN trunks on conv3x3_same, the 4 UpRes "
+          f"middles by the tail routes)", flush=True)
+    del loss, out, grads
+    bn.load_state_dict(cpu.state_dict())  # the running statistics as they were: the same start on both sides
+    x2, y2 = xb[:2].cpu(), yb[:2].cpu()
+    h2 = (torch.randn(2, 101, 101, generator=torch.Generator().manual_seed(39)) * 0.05)
+    with matmul_precision("parity"):
+        sides = [grads_of(m, xx.to(d), h2.to(d), y2.to(d)) for m, xx, d in ((bn, x2, dev), (cpu, x2, "cpu"))]
+    (lc, oc, gc), (lr, orf, gr) = sides
+    e_out = {}
+    for what, a, r in zip(("activ", "activout", "hebb"), oc, orf):
+        e_out[what] = float((a.detach().cpu() - r.detach()).abs().max())
+        check(e_out[what] <= 1e-5 * max(1.0, float(r.detach().abs().max())), f"batch_norm train B=2: {what} card vs CPU "
+              f"{e_out[what]:.3g}")
+    e_stats = max(float((a.cpu() - r).abs().max()) for (k, a), r in zip(bn.state_dict().items(), cpu.state_dict().values())
+                  if "running" in k)
+    check(e_stats <= 1e-5, f"batch_norm: running statistics card vs CPU {e_stats:.3g}")
+    e_grad = 0.0
+    for a, r in zip(gc, gr):
+        if r is None:
+            continue
+        e = float((a.cpu() - r).abs().max())
+        check(e <= 1e-4 * max(1.0, float(r.abs().max())), f"batch_norm: a gradient card vs CPU {e:.3g}")
+        e_grad = max(e_grad, e)
+    with torch.inference_mode(), matmul_precision("parity"):
+        ev = bn.eval()(x2.to(dev), h2.to(dev))
+        ev_ref = cpu.eval()(x2, h2)
+    e_eval = max(float((a.cpu() - r).abs().max()) / max(1.0, float(r.abs().max())) for a, r in zip(ev, ev_ref))
+    check(e_eval <= 1e-5, f"batch_norm eval B=2: card vs CPU {e_eval:.3g}")
+    print(f"[14] batch_norm B=2 card vs CPU port: train forward " + ", ".join(f"{k} {v:.3g}" for k, v in e_out.items())
+          + f"; running statistics {e_stats:.3g}; gradients {e_grad:.3g} (atol 1e-4 x max(1, max|ref|)); eval forward "
+          f"{e_eval:.3g} (over max(1, max|ref|))", flush=True)
+    del bn, cpu, sides, ev, ev_ref
+
+    # (4) the TPU lowerings: the default model's bits
+    xb8, yb8 = train_stream(1, 8, seed=40)
+    xb8, yb8 = xb8[0].to(dev), yb8[0].to(dev)
+    with training_numerics():
+        runs = []
+        for opts in ({}, dict(fold_hires=True), dict(patch_conv=32), dict(fast_dw=True)):
+            m = model(41, dropout_ratio=0.5, **opts).to(dev)
+            runs.append(grads_of(m, xb8, m.initial_zero_hebb(8, device=dev), yb8,
+                                 torch.Generator(device=dev).manual_seed(42)))
+            del m
+    for (l_, o_, g_) in runs[1:]:
+        check(bool(torch.equal(l_, runs[0][0])) and bool(torch.equal(o_.activ, runs[0][1].activ))
+              and same_bits(g_, runs[0][2]), "fold_hires / patch_conv / fast_dw: differ from the default model")
+    print(f"[14] fold_hires, patch_conv=32, fast_dw: B=8 train-mode loss, activ and gradients (dropout 0.5) == the "
+          f"default model's bit for bit; phase 14 took {time.time() - t0:.1f}s", flush=True)
+    return keys, counts
+
+
 def time_bare_epoch(dev):
     """Seconds of one TIMED_TRAIN-step epoch of make_epoch_fn alone (the CUDA graph step, the loss copies,
     no permutation, augmentation or driver), at cli.train's model, rate and dropout under TIMED_ARGS."""
@@ -2352,6 +2798,14 @@ def main() -> int:
     export_counts = phase_export(dev, smi, fwd_table["serving_tiles_s"])
     for entry in kernels:  # launches of phase 13's identity artifact
         entry["launches_export"] = export_counts[entry.get("counter", entry["name"])]
+    option_keys, option_counts = phase_model_options(dev, smi, name, fwd_table["serving_tiles_s"])
+    for entry in kernels:  # phase 14: the padded track's times, and the launches of each option's path
+        entry.update(option_keys.get(entry["name"], {}))
+        for path, counts in option_counts.items():
+            entry[f"launches_{path}"] = counts[entry.get("counter", entry["name"])]
+    listed = sorted(e["name"] for e in kernels)
+    check(listed == sorted(KERNELS) and all(set(KERNEL_KEYS) <= set(e) for e in kernels),
+          f"the kernels line lists {listed}, want every kernel {sorted(KERNELS)} with {KERNEL_KEYS}")
     print(f"[done] {time.time() - t0:.1f}s; card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

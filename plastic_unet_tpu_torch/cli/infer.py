@@ -9,8 +9,9 @@ model). The JAX parser's flags plus ``--device`` (default CUDA).
     python -m plastic_unet_tpu_torch.cli.infer -m MODEL.pth -i TGS_DIR -o OUT [--tta tta4] [--save] \
         [--quant int8] [--device cpu]
 
-Not ported yet, and raising when asked for: ``--visualize`` (ROADMAP.md,
-queue A item 7), ``--devices`` > 1 (item 6), ``--trunk-pad`` (item 4).
+``--trunk-pad`` must match how the model was trained. Not ported yet, and
+raising when asked for: ``--visualize`` (ROADMAP.md, queue A item 7),
+``--devices`` > 1 (item 6).
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", default="perf", help="perf|parity (the forward runs in true fp32 either way)")
     p.add_argument("--use-pallas", action="store_true", default=False,
                    help="accepted; the CUDA plastic head is the only path")
-    p.add_argument("--trunk-pad", type=int, default=0, metavar="SIZE", help="not ported (0 = off)")
+    p.add_argument("--trunk-pad", type=int, default=0, metavar="SIZE",
+                   help="padded trunk (must match how the model was trained; 0 = off)")
     p.add_argument("--devices", type=int, default=1, help="devices to shard inference over (only 1 is ported)")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
                    help="int8 serving: calibrate activation ranges on validation images, then run the conv "

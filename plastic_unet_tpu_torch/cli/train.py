@@ -5,8 +5,11 @@ src/train.py:316-358), plus ``--device``.
     python -m plastic_unet_tpu_torch.cli.train -o OUT (-d TGS_DIR | -i DATASET.hdf5 | --synthetic N) [...]
 
 ``--device`` defaults to CUDA and raises on a host without it; ``--device
-cpu`` runs the plain PyTorch versions on the CPU. A flag for an option the
-port does not have yet raises (train.driver.build_model).
+cpu`` runs the plain PyTorch versions on the CPU. ``--trunk-pad`` and
+``--remat-trunk`` reach the model; ``--fast-dw``, ``--patch-conv``,
+``--use-pallas``, ``--pallas-trunk`` and ``--rng-impl`` are accepted and
+change nothing. A flag for an option the port does not have yet raises
+(train.driver.build_model).
 """
 
 from __future__ import annotations
@@ -51,10 +54,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted; the CUDA plastic head is the only path")
     p.add_argument("--pallas-trunk", action="store_true", default=False,
                    help="accepted; the CUDA residual tails are the only path")
-    p.add_argument("--fast-dw", action="store_true", default=False, help="not ported")
-    p.add_argument("--patch-conv", type=int, default=0, metavar="MAX_C", help="not ported (0 = off)")
-    p.add_argument("--remat-trunk", action="store_true", default=False, help="not ported")
-    p.add_argument("--trunk-pad", type=int, default=0, metavar="SIZE", help="not ported (0 = off)")
+    p.add_argument("--fast-dw", action="store_true", default=False,
+                   help="accepted; a TPU lowering of the same conv (the CUDA kernels are the only path)")
+    p.add_argument("--patch-conv", type=int, default=0, metavar="MAX_C",
+                   help="accepted; a TPU lowering of the same conv (the CUDA kernels are the only path)")
+    p.add_argument("--remat-trunk", action="store_true", default=False,
+                   help="checkpoint the 9 trunk blocks: the backward recomputes their activations "
+                        "(the same bits, less memory)")
+    p.add_argument("--trunk-pad", type=int, default=0, metavar="SIZE",
+                   help="pad inputs to SIZExSIZE (e.g. 128) and crop the logits back (0 = off)")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="trunk compute dtype (bfloat16: not ported)")
     p.add_argument("--epochs-per-dispatch", type=int, default=1, metavar="K",
@@ -64,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-plastic", action="store_true", default=False,
                    help="vanilla U-Net head (sigmoid on trunk logits, no plasticity)")
     p.add_argument("--rng-impl", default="threefry", choices=["threefry", "rbg", "unsafe_rbg"],
-                   help="accepted as threefry only (the port draws from torch generators)")
+                   help="accepted; the port draws from torch generators whichever is named")
     p.add_argument("--loss-space", default="logits", choices=["logits", "probs"])
     p.add_argument("--seed", default=42, type=int)
     p.add_argument("--synthetic", default=0, type=int, metavar="N",

@@ -4,12 +4,16 @@ with every field and default of the JAX package's TrainConfig.
 
 Fields of options the port does not have keep their names and defaults so
 that a configuration carries over; ``train.driver.build_model`` raises a
-``ValueError`` naming each one set away from its default (``arch="unet"``,
-``devices > 1``, ``trunk_pad``, ``patch_conv``, ``remat_trunk``,
-``fast_dw``, ``compute_dtype`` other than float32, ``batch_norm``,
-``bilinear_upsample``, ``rng_impl`` other than threefry). ``use_pallas``
-and ``pallas_trunk`` are accepted and change nothing: on CUDA the port's
-kernels are its only path. ``trace_mode`` matters only with several devices.
+``ValueError`` naming each one set away from its default, with its reason
+(``arch="unet"``, ``devices > 1``, ``compute_dtype`` other than float32,
+``batch_norm``: UNetPRes has it, the JAX trainer cannot train it).
+``trunk_pad`` and ``remat_trunk`` reach the model. ``use_pallas``,
+``pallas_trunk``, ``patch_conv`` and ``fast_dw`` are TPU lowerings of the
+same math: accepted, they change nothing, since on CUDA the port's kernels
+are its only path. ``bilinear_upsample`` is unused by UNetPRes, as in the
+JAX package; ``rng_impl`` names a JAX PRNG, and the port draws from torch
+generators whichever it names. ``trace_mode`` matters only with several
+devices.
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ class TrainConfig:
     neurons: int = 16
     dropout_ratio: float = 0.5
     alfa_type: str = "free"
-    batch_norm: bool = False
-    bilinear_upsample: bool = False
+    batch_norm: bool = False  # UNetPRes has it; build_model raises (no trainer: the JAX one cannot train it)
+    bilinear_upsample: bool = False  # unused by UNetPRes, as in the JAX package
 
     # --- throughput and precision knobs (defaults = reference parity) ---
     lanes: int = 1  # parallel lifetime streams (1 == reference)
@@ -57,17 +61,17 @@ class TrainConfig:
     matmul_precision: str = "perf"  # 'parity' for true fp32 (TF32 off)
     use_pallas: bool = False  # accepted; the CUDA head is the only path on the card
     pallas_trunk: bool = False  # accepted; the CUDA residual tails are the only path on the card
-    fast_dw: bool = False
-    remat_trunk: bool = False
-    patch_conv: int = 0
-    trunk_pad: int = 0
+    fast_dw: bool = False  # accepted; a TPU lowering of the same conv
+    remat_trunk: bool = False  # torch.utils.checkpoint around each trunk module: the same bits, less memory
+    patch_conv: int = 0  # accepted; a TPU lowering of the same conv
+    trunk_pad: int = 0  # reflect-pad the input to (trunk_pad, trunk_pad), crop the logits back (0 = off)
     plastic: bool = True  # False = vanilla U-Net head (sigmoid on trunk logits)
     compute_dtype: str = "float32"
     augment: bool = False  # random flip/rotate per sample and epoch
     shuffle: bool = False  # per-epoch stream shuffle (the reference keeps a fixed order, train.py:91)
     tta: Sequence[str] = ("identity",)  # inference-time TTA views
     seed: int = 42
-    rng_impl: str = "threefry"  # only the default is accepted (the JAX hardware RNG has no counterpart)
+    rng_impl: str = "threefry"  # threefry | rbg | unsafe_rbg: the JAX PRNG; the port's torch generators either way
     epochs_per_dispatch: int = 1  # fold up to K epochs into one dispatch; chunks never cross a
     # validation/save/rollout boundary; >1 coarsens the stop check and NaN detection to chunks
     quirk_epoch_loss: bool = True  # reproduce train.py:115 (all_losses[-N] scalar)

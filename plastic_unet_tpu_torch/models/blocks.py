@@ -16,6 +16,14 @@ cuDNN layers, pool, pad, cat and dropout differentiate through autograd.
 Weights and biases take the torch-default init (U(-1/sqrt(fan_in),
 1/sqrt(fan_in))) from an explicit generator.
 
+With ``batch_norm`` (the JAX blocks' layout: ResidualBlock is relu(x) ->
+BN -> [conv -> BN -> ReLU] -> [conv -> BN] -> + relu(x); UpRes's middle
+never has BN) a trunk's two residual blocks run unfused, each 3x3 conv
+through ops.conv3x3.conv3x3_same (the conv3x3 kernel forward, conv3x3_dgrad
+and conv3x3_wgrad backward) and BN as pointwise ATen work; the BN-free
+trunks keep ops.residual_tail. :class:`BatchNorm` has flax nn.BatchNorm's
+semantics, not torch BatchNorm2d's (see there).
+
 int8 serving (``quant``, the JAX blocks' QuantConv3 / QuantConvT3): the 49
 quantized convs (each level's entry conv, the four tail convs of each of
 the 9 trunks, the 4 ConvTransposes) carry a non-persistent ``amax`` buffer,
@@ -33,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_same
 from plastic_unet_tpu_torch.ops.export_ops import residual_tail_forward
 from plastic_unet_tpu_torch.ops.quant import qconv3_same, qconvT3_s2_valid
 from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_ranges
@@ -96,18 +105,30 @@ def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     return x
 
 
-def channel_dropout(x: torch.Tensor, rate: float, training: bool,
-                    generator: torch.Generator | None = None) -> torch.Tensor:
-    """torch Dropout2d on NHWC: one keep/drop draw per (sample, channel),
-    survivors scaled by 1/(1-rate). A no-op in eval mode (it draws nothing),
-    which is all the serving path runs. The draws come from ``generator``,
-    which lives on ``x``'s device; the global generator is never used."""
+def draw_keep(b: int, c: int, rate: float, training: bool, generator: torch.Generator | None,
+              device) -> torch.Tensor | None:
+    """The keep mask (B, 1, 1, C) of :func:`channel_dropout`, or None where
+    it draws nothing (eval mode, rate 0)."""
     if not training or rate == 0.0:
-        return x
+        return None
     if generator is None:
         raise ValueError("channel_dropout: training with dropout needs an explicit torch.Generator "
                          "on the input's device")
-    keep = torch.rand((x.shape[0], 1, 1, x.shape[3]), device=x.device, generator=generator) >= rate
+    return torch.rand((b, 1, 1, c), device=device, generator=generator) >= rate
+
+
+def channel_dropout(x: torch.Tensor, rate: float, training: bool,
+                    generator: torch.Generator | None = None, keep: torch.Tensor | None = None) -> torch.Tensor:
+    """torch Dropout2d on NHWC: one keep/drop draw per (sample, channel),
+    survivors scaled by 1/(1-rate). A no-op in eval mode (it draws nothing),
+    which is all the serving path runs. The draws come from ``generator``,
+    which lives on ``x``'s device; the global generator is never used.
+    ``keep`` (from :func:`draw_keep`) is a mask drawn earlier, which then
+    takes the place of a draw (remat_trunk's replay)."""
+    if keep is None:
+        keep = draw_keep(x.shape[0], x.shape[3], rate, training, generator, x.device)
+    if keep is None:
+        return x
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
@@ -139,26 +160,66 @@ def quant_conv_nhwc(conv: nn.Module, x: torch.Tensor, quant: str, int8_fn) -> to
     return conv_nhwc(conv, x)
 
 
-class ConvModule(nn.Module):
-    """The parameters of a conv3x3 [+ReLU] (reference conv_module), under
-    the reference's key ``conv``; ops.residual_tail does the math."""
+class BatchNorm(nn.Module):
+    """flax nn.BatchNorm on NHWC (the JAX blocks' BN; flax 0.12.3 defaults):
+    statistics over (B, H, W), the variance as E[x^2] - E[x]^2 clipped at 0
+    (use_fast_variance), epsilon 1e-5, and running averages
+    ``ra = 0.99 * ra + 0.01 * batch`` of the mean and of the biased batch
+    variance; y = (x - mean) * (rsqrt(var + eps) * weight) + bias. Train mode
+    normalises by the batch and updates the running buffers (what the JAX
+    ``apply(..., mutable=["batch_stats"])`` returns); eval mode reads them.
+    The keys are BatchNorm2d's (weight = flax scale, bias, running_mean =
+    flax mean, running_var = flax var): no reference layout with BN exists."""
+
+    EPS, MOMENTUM = 1e-5, 0.99
 
     def __init__(self, features: int):
         super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(dim=(0, 1, 2))
+            var = torch.clamp_min((x * x).mean(dim=(0, 1, 2)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.EPS) * self.weight) + self.bias
+
+
+class ConvModule(nn.Module):
+    """The parameters of a conv3x3 [+BN] [+ReLU] (reference conv_module),
+    the conv under the reference's key ``conv``, the BN (``batch_norm``)
+    beside it as ``bn``; ops.residual_tail, or with BN :func:`_bn_tail`,
+    does the math."""
+
+    def __init__(self, features: int, batch_norm: bool = False):
+        super().__init__()
         self.conv = quantizable(nn.Conv2d(features, features, 3, padding=1))
+        if batch_norm:
+            self.bn = BatchNorm(features)
 
 
 class ResidualBlock(nn.Module):
-    """The parameters of ReLU -> conv_module -> conv_module(no act), + skip
-    (reference residual_block). The reference's leading
+    """The parameters of ReLU [-> BN] -> conv_module -> conv_module(no act),
+    + skip (reference residual_block). The reference's leading
     ``nn.ReLU(inplace=True)`` mutates the block input, so the skip it adds is
     relu(input). A trunk's two blocks run as one ops.residual_tail, forward
-    and backward; the block has no forward of its own."""
+    and backward, or with BN as :func:`_bn_tail`; the block has no forward
+    of its own. The BN after the leading ReLU is ``bn``."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, batch_norm: bool = False):
         super().__init__()
         # Index 0 is the (parameter-free) ReLU, kept so the keys are conv.1 / conv.2.
-        self.conv = nn.ModuleList([nn.ReLU(), ConvModule(features), ConvModule(features)])
+        self.conv = nn.ModuleList([nn.ReLU(), ConvModule(features, batch_norm), ConvModule(features, batch_norm)])
+        if batch_norm:
+            self.bn = BatchNorm(features)
 
     def convs(self) -> tuple:
         return self.conv[1].conv, self.conv[2].conv
@@ -168,14 +229,25 @@ class ResidualBlock(nn.Module):
         return c1.weight, c1.bias, c2.weight, c2.bias
 
 
-def _trunk(in_features: int, features: int) -> nn.ModuleList:
+def _trunk(in_features: int, features: int, batch_norm: bool = False) -> nn.ModuleList:
     """Sequential(Conv2d, residual_block, residual_block, ReLU) of down/middle."""
     return nn.ModuleList([
         quantizable(nn.Conv2d(in_features, features, 3, padding=1)),
-        ResidualBlock(features),
-        ResidualBlock(features),
+        ResidualBlock(features, batch_norm),
+        ResidualBlock(features, batch_norm),
         nn.ReLU(),
     ])
+
+
+def _bn_tail(blocks, x: torch.Tensor) -> torch.Tensor:
+    """The two residual blocks with BN, then the trunk's ReLU, unfused (the
+    JAX blocks do not fuse a BN tail): each conv one conv3x3_same."""
+    for blk in blocks:
+        c1, c2 = blk.conv[1], blk.conv[2]
+        h = torch.relu(x)
+        y = torch.relu(c1.bn(conv3x3_same(blk.bn(h), c1.conv.weight, c1.conv.bias)))
+        x = c2.bn(conv3x3_same(y, c2.conv.weight, c2.conv.bias)) + h
+    return torch.relu(x)
 
 
 def _int8_tail(convs, x0: torch.Tensor) -> torch.Tensor:
@@ -192,6 +264,8 @@ def _int8_tail(convs, x0: torch.Tensor) -> torch.Tensor:
 
 def _trunk_forward(seq: nn.ModuleList, x: torch.Tensor, quant: str = "") -> torch.Tensor:
     x = quant_conv_nhwc(seq[0], x, quant, qconv3_same)
+    if hasattr(seq[1], "bn"):
+        return _bn_tail(seq[1:3], x)
     convs = seq[1].convs() + seq[2].convs()
     if quant == "int8":
         return _int8_tail(convs, x)
@@ -209,9 +283,9 @@ def _trunk_forward(seq: nn.ModuleList, x: torch.Tensor, quant: str = "") -> torc
 class DownRes(nn.Module):
     """conv3x3 -> 2x residual -> ReLU (reference down)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, batch_norm: bool = False):
         super().__init__()
-        self.dconv = _trunk(in_features, features)
+        self.dconv = _trunk(in_features, features, batch_norm)
 
     def forward(self, x: torch.Tensor, quant: str = "") -> torch.Tensor:
         return _trunk_forward(self.dconv, x, quant)
@@ -220,9 +294,9 @@ class DownRes(nn.Module):
 class Middle(nn.Module):
     """The same trunk as DownRes (reference middle)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, batch_norm: bool = False):
         super().__init__()
-        self.mconv = _trunk(in_features, features)
+        self.mconv = _trunk(in_features, features, batch_norm)
 
     def forward(self, x: torch.Tensor, quant: str = "") -> torch.Tensor:
         return _trunk_forward(self.mconv, x, quant)
@@ -231,19 +305,21 @@ class Middle(nn.Module):
 class UpRes(nn.Module):
     """ConvT(k3, s2, VALID) -> pad/crop to skip -> cat[x, skip] ->
     channel dropout -> middle (reference up; its middle never uses
-    batch_norm)."""
+    batch_norm). ``keep`` is a dropout mask (B, 1, 1, in_features) drawn
+    before the call (:func:`draw_keep`), in place of a draw from
+    ``generator``."""
 
     def __init__(self, in_features: int, features: int, dropout_ratio: float):
         super().__init__()
         self.dconv = quantizable(nn.ConvTranspose2d(in_features, features, 3, stride=2))
         # Index 0 is the Dropout2d of the reference's Sequential (no parameters).
         self.uconv = nn.ModuleList([nn.Dropout2d(dropout_ratio), Middle(in_features, features)])
-        self.dropout_ratio = dropout_ratio
+        self.in_features, self.dropout_ratio = in_features, dropout_ratio
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor,
-                generator: torch.Generator | None = None, quant: str = "") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor, generator: torch.Generator | None = None,
+                quant: str = "", keep: torch.Tensor | None = None) -> torch.Tensor:
         x = quant_conv_nhwc(self.dconv, x, quant, qconvT3_s2_valid)
         x = pad_to_match(x, skip.shape[1], skip.shape[2])
         x = torch.cat([x, skip], dim=-1)
-        x = channel_dropout(x, self.dropout_ratio, self.training, generator)
+        x = channel_dropout(x, self.dropout_ratio, self.training, generator, keep)
         return self.uconv[1](x, quant)

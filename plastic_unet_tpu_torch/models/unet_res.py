@@ -14,8 +14,22 @@ models.blocks and submit.quant). The ranges live in non-persistent buffers
 (:meth:`UNetPRes.quant_ranges`), so a reference ``.pth`` loads strictly
 either way; the 1x1 outconv and the head stay fp32.
 
-Not ported yet (see ROADMAP.md): fold_hires, trunk_pad, coord_conv,
-remat_trunk, patch_conv, fast_dw, compute_dtype, batch_norm.
+The constructor takes every field of the JAX module. ``trunk_pad``
+reflect-pads the input to (trunk_pad, trunk_pad) (101 -> 128: the trunk then
+runs at 128/64/32/16/8) and crops the trunk's logits back to (nbf, nbf)
+before the head; ``coord_conv`` appends the xx/yy channels (ops.coords)
+after the pad, so the stem takes n_channels + 2; ``remat_trunk`` runs each
+of the 9 trunk modules under torch.utils.checkpoint (non-reentrant), the
+backward recomputing what they would have kept, with the same kernels and
+so the same bits: UpRes's dropout mask is drawn before its checkpoint and
+passed in, so the recompute reads the same mask (checkpoint's RNG stash
+never sees an explicit generator); ``batch_norm`` puts flax-semantics BN
+in the DownRes and Middle trunks (models.blocks), which then run unfused.
+The TPU lowerings of the same math are accepted and change nothing:
+``fold_hires`` (space-to-depth, exact up to reassociation; the same
+parameters), ``patch_conv``, ``fast_dw``, ``use_pallas``, ``pallas_trunk``;
+``bilinear_upsample`` is ignored, as in the JAX module. ``compute_dtype``
+other than float32 raises (ROADMAP.md, queue A item A4d).
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ from typing import Mapping, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from plastic_unet_tpu_torch.models.blocks import (
     QUANT_MODES,
@@ -32,9 +47,12 @@ from plastic_unet_tpu_torch.models.blocks import (
     UpRes,
     channel_dropout,
     conv_nhwc,
+    draw_keep,
     init_conv_,
     max_pool_2x2,
 )
+from plastic_unet_tpu_torch.ops.augment import crop_from, pad_to
+from plastic_unet_tpu_torch.ops.coords import add_coords
 from plastic_unet_tpu_torch.ops.export_ops import plastic_head_forward
 from plastic_unet_tpu_torch.ops.plastic_head import plastic_head
 from plastic_unet_tpu_torch.ops.plasticity import check_head_args
@@ -55,32 +73,48 @@ class OutConv(nn.Module):
 
 
 class UNetPRes(nn.Module):
-    """Residual plastic U-Net; arguments mirror the JAX module's.
+    """Residual plastic U-Net; arguments mirror the JAX module's, in its
+    order, and ``generator``.
 
     ``generator`` seeds the initial weights (torch-default conv init,
-    w ~ 0.01*randn, alpha ~ 0.01*rand, eta = 0.01); None draws from the
-    global generator. alpha is an (nbf, nbf) matrix for either alfa_type,
-    as in the JAX module, where alfa_type only selects the head's contract."""
+    w ~ 0.01*randn, alpha ~ 0.01*rand, eta = 0.01; BN scale 1, bias 0);
+    None draws from the global generator. alpha is an (nbf, nbf) matrix for
+    either alfa_type, as in the JAX module, where alfa_type only selects the
+    head's contract."""
 
     def __init__(self, n_channels: int = 1, n_classes: int = 1, neurons: int = 16,
                  dropout_ratio: float = 0.5, alfa_type: str = "free", rule: str = "hebb",
-                 nbf: int = 128, plastic: bool = True, quant: str = "",
-                 generator: torch.Generator | None = None):
+                 nbf: int = 128, batch_norm: bool = False, bilinear_upsample: bool = False,
+                 use_pallas: bool = False, compute_dtype=None, fold_hires: bool = False,
+                 pallas_trunk: bool = False, fast_dw: bool = False, patch_conv: int = 0,
+                 plastic: bool = True, coord_conv: bool = False, remat_trunk: bool = False,
+                 quant: str = "", trunk_pad: int = 0, generator: torch.Generator | None = None):
         super().__init__()
         check_head_args(rule, alfa_type)
+        if compute_dtype not in (None, torch.float32, "float32"):
+            raise ValueError(f"compute_dtype={compute_dtype!r}: the port runs float32 only "
+                             "(ROADMAP.md, queue A item A4d)")
+        if fold_hires and batch_norm:  # the JAX module's folded ConvModule refuses BN
+            raise NotImplementedError("batch_norm is not supported in folded mode")
         n = neurons
         self.n_channels, self.neurons = n_channels, neurons
         self.nbf, self.rule, self.alfa_type, self.plastic, self.quant = nbf, rule, alfa_type, plastic, quant
         self.dropout_ratio = dropout_ratio
+        self.batch_norm, self.coord_conv, self.remat_trunk, self.trunk_pad = batch_norm, coord_conv, remat_trunk, trunk_pad
+        # TPU lowerings of the same math (and bilinear_upsample, unused as in the JAX module):
+        # kept for the quant check and the record, read by nothing else
+        self.fold_hires, self.pallas_trunk, self.fast_dw, self.patch_conv = fold_hires, pallas_trunk, fast_dw, patch_conv
+        self.use_pallas, self.bilinear_upsample = use_pallas, bilinear_upsample
         if plastic:
             self.w = nn.Parameter(torch.empty(nbf, nbf))
             self.alpha = nn.Parameter(torch.empty(nbf, nbf))
             self.eta = nn.Parameter(torch.empty(1))
-        self.conv1 = DownRes(n_channels, n)
-        self.conv2 = DownRes(n, n * 2)
-        self.conv3 = DownRes(n * 2, n * 4)
-        self.conv4 = DownRes(n * 4, n * 8)
-        self.mid = Middle(n * 8, n * 16)
+        bn = batch_norm
+        self.conv1 = DownRes(n_channels + 2 if coord_conv else n_channels, n, bn)
+        self.conv2 = DownRes(n, n * 2, bn)
+        self.conv3 = DownRes(n * 2, n * 4, bn)
+        self.conv4 = DownRes(n * 4, n * 8, bn)
+        self.mid = Middle(n * 8, n * 16, bn)
         self.uconv4 = UpRes(n * 16, n * 8, dropout_ratio)
         self.uconv3 = UpRes(n * 8, n * 4, dropout_ratio)
         self.uconv2 = UpRes(n * 4, n * 2, dropout_ratio)
@@ -114,6 +148,23 @@ class UNetPRes(nn.Module):
             conv = convs[name]
             conv.amax = torch.as_tensor(v, dtype=torch.float32).to(conv.weight.device).reshape(())
 
+    def _pad(self, x: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """(x reflect-padded to (trunk_pad, trunk_pad), the size to crop the
+        logits back to, 0 for none), with the JAX module's checks."""
+        tp, h0, w0 = self.trunk_pad, x.shape[1], x.shape[2]
+        if not tp:
+            return x, 0
+        if h0 > tp or w0 > tp:
+            raise ValueError(f"trunk_pad={tp} smaller than input {h0}x{w0}")
+        if h0 != w0:  # the crop restores a square (nbf, nbf) geometry
+            raise ValueError(f"trunk_pad requires square inputs, got {h0}x{w0}")
+        if h0 == tp:
+            return x, 0
+        if tp > 3 * h0 - 2:  # reflect padding needs each side's pad, at most ceil((tp - h0) / 2), below h0
+            raise ValueError(f"trunk_pad={tp} too large for {h0}x{w0} input: reflect padding supports at most "
+                             f"{3 * h0 - 2}")
+        return pad_to(x, tp), h0
+
     def initial_zero_hebb(self, batch: int = 1, device=None) -> torch.Tensor:
         """Batched zero trace (reference initialZeroHebb)."""
         return torch.zeros((batch, self.nbf, self.nbf), device=device)
@@ -128,22 +179,44 @@ class UNetPRes(nn.Module):
             hebb = hebb[None] if hebb.dim() == 2 else hebb
         if self.quant not in QUANT_MODES:
             raise ValueError(f"quant must be '', 'calib' or 'int8', got {self.quant!r}")
-        x = x.contiguous()
+        if self.quant:
+            bad = [k for k in ("fold_hires", "pallas_trunk", "fast_dw", "patch_conv", "batch_norm", "trunk_pad",
+                               "remat_trunk") if getattr(self, k)]
+            if bad:
+                raise ValueError(f"quant={self.quant!r} is a plain serving mode; incompatible with {bad}")
+        x, pad_crop = self._pad(x.contiguous())
+        if self.coord_conv:
+            x = add_coords(x)
         tr, r, g, q = self.training, self.dropout_ratio, generator, self.quant
-        xc1 = self.conv1(x, q)
+        remat = self.remat_trunk and torch.is_grad_enabled()
+
+        def trunk(m, *args):
+            if remat:
+                return checkpoint(m, *args, use_reentrant=False, preserve_rng_state=False)
+            return m(*args)
+
+        def up(m, x, skip):
+            if remat:  # the mask drawn here, once: the recompute reads this tensor
+                keep = draw_keep(x.shape[0], m.in_features, r, tr, g, x.device)
+                return checkpoint(m, x, skip, None, q, keep, use_reentrant=False, preserve_rng_state=False)
+            return m(x, skip, g, q)
+
+        xc1 = trunk(self.conv1, x, q)
         x1 = channel_dropout(max_pool_2x2(xc1), r / 2, tr, g)
-        xc2 = self.conv2(x1, q)
+        xc2 = trunk(self.conv2, x1, q)
         x2 = channel_dropout(max_pool_2x2(xc2), r, tr, g)
-        xc3 = self.conv3(x2, q)
+        xc3 = trunk(self.conv3, x2, q)
         x3 = channel_dropout(max_pool_2x2(xc3), r, tr, g)
-        xc4 = self.conv4(x3, q)
+        xc4 = trunk(self.conv4, x3, q)
         x4 = channel_dropout(max_pool_2x2(xc4), r, tr, g)
-        x5 = self.mid(x4, q)
-        u = self.uconv4(x5, xc4, g, q)
-        u = self.uconv3(u, xc3, g, q)
-        u = self.uconv2(u, xc2, g, q)
-        u = self.uconv1(u, xc1, g, q)
+        x5 = trunk(self.mid, x4, q)
+        u = up(self.uconv4, x5, xc4)
+        u = up(self.uconv3, u, xc3)
+        u = up(self.uconv2, u, xc2)
+        u = up(self.uconv1, u, xc1)
         out = conv_nhwc(self.outc.conv, u)  # (B, H, W, n_classes)
+        if pad_crop:
+            out = crop_from(out, pad_crop)  # back to the (nbf, nbf) head geometry
 
         b = out.shape[0]
         if out.numel() != b * self.nbf * self.nbf:

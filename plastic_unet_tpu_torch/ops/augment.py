@@ -16,6 +16,9 @@ mask; :func:`tta_expand`, :func:`tta_merge` and :func:`tta_batched_apply`
 stack, undo and average them. ``torch.flip``, ``torch.rot90`` and
 ``transpose`` return copies or strided views: whatever feeds a kernel
 wrapper (contiguous NHWC) is made contiguous first.
+
+:func:`pad_to` and :func:`crop_from` pad a tile up to a square canvas and
+crop it back (UNetPRes's ``trunk_pad``: 101 -> 128 and back).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 def _spatial_axes(x: torch.Tensor, channels_last: bool) -> tuple[int, int]:
@@ -155,3 +159,30 @@ def random_flip_rotate(choice: torch.Tensor, img: torch.Tensor, mask: torch.Tens
     batched, mask (H, W) or batched, as the JAX function takes them."""
     xa, ya = augment_stream(img[None], mask[None], choice.reshape(1, 3), channels_last)
     return xa[0], ya[0]
+
+
+def pad_to(x: torch.Tensor, size: int, channels_last: bool = True) -> torch.Tensor:
+    """Reflect-pad the spatial dims up to (size, size), the extra pixel of an
+    odd difference on the right and bottom (e.g. 101 -> 128: 13 before, 14
+    after); each side's pad must be smaller than the dim (torch reflects
+    once). The JAX function's ``mode="reflect"``, the one its callers use.
+    Returns a contiguous tensor."""
+    h_ax, w_ax = _spatial_axes(x, channels_last)
+    dh, dw = size - x.shape[h_ax], size - x.shape[w_ax]
+    if dh < 0 or dw < 0:
+        raise ValueError(f"pad_to: {tuple(x.shape)} is larger than ({size}, {size}) in its spatial dims")
+    if channels_last:  # F.pad pads the trailing dims: put H, W last
+        x = x.movedim(-1, -3)
+    lead = x.shape[:-3]
+    y = F.pad(x.reshape((-1,) + tuple(x.shape[-3:])), (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2),
+              mode="reflect")
+    y = y.reshape(lead + tuple(y.shape[-3:]))
+    return (y.movedim(-3, -1) if channels_last else y).contiguous()
+
+
+def crop_from(x: torch.Tensor, size: int, channels_last: bool = True) -> torch.Tensor:
+    """The inverse of :func:`pad_to`: the centre (size, size) of the spatial
+    dims, the odd pixel dropped on the right and bottom. A strided view."""
+    h_ax, w_ax = _spatial_axes(x, channels_last)
+    dh, dw = x.shape[h_ax] - size, x.shape[w_ax] - size
+    return x.narrow(h_ax, dh // 2, size).narrow(w_ax, dw // 2, size)

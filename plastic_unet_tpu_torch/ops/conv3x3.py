@@ -31,8 +31,11 @@ for every output and give the same bits; the split family sums in its own
 fixed order, so its bits differ from theirs but not from run to run.
 
 These wrappers are the building blocks of ops.residual_tail and stand
-outside autograd, like ops.conv3x3_wgrad: the differentiable entry point is
-ops.residual_tail.residual_tail, whose autograd.Function chains them.
+outside autograd, like ops.conv3x3_wgrad: the differentiable entry points
+are ops.residual_tail.residual_tail, whose autograd.Function chains them,
+and :func:`conv3x3_same`, one conv with its bias (forward :func:`conv3x3`,
+backward :func:`conv3x3_dgrad` and ops.conv3x3_wgrad), which the
+batch-norm trunks of UNetPRes run conv by conv.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from plastic_unet_tpu_torch.ops import _build
+from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"conv3x3_forward": [_V] * 8 + [_I] * 17 + [_V]}
@@ -288,6 +292,31 @@ def conv3x3_dgrad(d, w_hwio, residual=None, *, gate=None, in_gate=None, plan=Non
     res = _launch(d, w_hwio, None, residual, flip=True, gate=gate, in_gate=in_gate, plan=plan)
     conv3x3_dgrad.launches += 1
     return res
+
+
+class _Conv3x3Same(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        x, k = x.contiguous(), hwio(weight)
+        ctx.save_for_backward(x, k)
+        return conv3x3(x, k, bias.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        g = g.contiguous()
+        dx = conv3x3_dgrad(g, k)[0] if ctx.needs_input_grad[0] else None
+        dw, db = conv3x3_wgrad(x, g, layout="oihw")
+        return dx, dw, db
+
+
+def conv3x3_same(x, weight, bias):
+    """A 3x3 SAME conv of NHWC ``x`` (B, H, W, Cin) with a torch Conv2d
+    ``weight`` (Cout, Cin, 3, 3) and ``bias`` (Cout,), differentiable in all
+    three: the forward is :func:`conv3x3`, the backward :func:`conv3x3_dgrad`
+    (the weights read tap-reversed) and ops.conv3x3_wgrad. CUDA tensors
+    launch the kernels or raise; CPU tensors take their plain versions."""
+    return _Conv3x3Same.apply(x, weight, bias)
 
 
 conv3x3.launches = 0

@@ -51,22 +51,37 @@ from plastic_unet_tpu_torch.utils.precision import matmul_precision
 RESUME_STATE = "train_state.pt"  # the port's counterpart of the JAX driver's orbax_state directory
 
 
+RNG_IMPLS = ("threefry", "rbg", "unsafe_rbg")  # the JAX CLI's choices; each is one more stream here
+
+
 def build_model(cfg: TrainConfig) -> UNetPRes:
     """The configured UNetPRes (nbf = image width, as at every reference
-    call site), its weights drawn from ``cfg.seed``. Raises ValueError
-    naming every option the port does not have (ROADMAP.md, queue A)."""
-    bad = [name for name in ("trunk_pad", "patch_conv", "remat_trunk", "fast_dw", "batch_norm", "bilinear_upsample")
-           if getattr(cfg, name)]
-    for name, ported in (("arch", "unet_res"), ("compute_dtype", "float32"), ("rng_impl", "threefry")):
-        if getattr(cfg, name) != ported:
-            bad.append(f"{name}={getattr(cfg, name)!r}")
+    call site), its weights drawn from ``cfg.seed``. ``trunk_pad`` and
+    ``remat_trunk`` reach the model; ``patch_conv``, ``fast_dw``,
+    ``use_pallas`` and ``pallas_trunk`` (TPU lowerings of the same math),
+    ``bilinear_upsample`` (unused by UNetPRes, as in the JAX package) and
+    ``rng_impl`` (the JAX PRNG; the port draws from torch generators, another
+    stream whichever is named) are accepted and change nothing. Raises
+    ValueError naming every option the port does not have, with its reason."""
+    bad = []
+    if cfg.arch != "unet_res":
+        bad.append(f"arch={cfg.arch!r} (the classic UNetP: queue A item A5)")
     if cfg.devices > 1:
-        bad.append(f"devices={cfg.devices}")
+        bad.append(f"devices={cfg.devices} (data parallel: queue A item A6)")
+    if cfg.compute_dtype != "float32":
+        bad.append(f"compute_dtype={cfg.compute_dtype!r} (reduced precision: queue A item A4d)")
+    if cfg.batch_norm:
+        bad.append("batch_norm (UNetPRes has it, but the JAX train step applies a model with params only and "
+                   "cannot train one with batch_stats, so there is no trainer to port)")
     if bad:
-        raise ValueError(f"plastic_unet_tpu_torch does not have {bad} yet (ROADMAP.md, queue A); "
-                         "the JAX package does")
+        raise ValueError(f"plastic_unet_tpu_torch does not have {bad} (ROADMAP.md, queue A)")
+    if cfg.rng_impl not in RNG_IMPLS:
+        raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got {cfg.rng_impl!r}")
     return UNetPRes(n_channels=cfg.im_chan, n_classes=1, neurons=cfg.neurons, dropout_ratio=cfg.dropout_ratio,
-                    alfa_type=cfg.alfa_type, rule=cfg.prule, nbf=cfg.im_width, plastic=cfg.plastic,
+                    alfa_type=cfg.alfa_type, rule=cfg.prule, nbf=cfg.im_width,
+                    bilinear_upsample=cfg.bilinear_upsample, use_pallas=cfg.use_pallas,
+                    pallas_trunk=cfg.pallas_trunk, fast_dw=cfg.fast_dw, patch_conv=cfg.patch_conv,
+                    plastic=cfg.plastic, remat_trunk=cfg.remat_trunk, trunk_pad=cfg.trunk_pad,
                     generator=torch.Generator().manual_seed(cfg.seed))
 
 

@@ -13,6 +13,16 @@ undoes the HWIO layout of its conv kernels:
 Both are the flax kernel transposed by the inverse of ``(2, 3, 1, 0)``.
 The JAX int8 serving mode's ``quant`` collection (one ``amax`` beside each
 quantized conv's kernel) reaches the port through :func:`quant_ranges_from_jax`.
+
+A ``batch_norm`` model's BN (flax ``.../BatchNorm_0``: ``scale`` and
+``bias`` in ``params``, ``mean`` and ``var`` in ``batch_stats``) maps to
+``bn.weight``, ``bn.bias``, ``bn.running_mean`` and ``bn.running_var``
+beside what each BN follows: ``<block>.bn`` after a residual block's
+leading ReLU, ``<block>.conv.<i>.bn`` after its conv ``<block>.conv.<i>.conv``
+(:func:`unetp_res_name_map` with ``batch_norm=True``,
+:func:`unetp_res_batch_stats_map`). No reference-format ``.pth`` with BN
+exists, so the names are BatchNorm2d's; a BN-free ``.pth`` loads strictly
+as before.
 """
 
 from __future__ import annotations
@@ -32,46 +42,89 @@ def _conv_entry(flax_path: tuple, torch_prefix: str) -> dict:
     }
 
 
-def _res_block(flax_path: tuple, torch_prefix: str) -> dict:
+# flax BatchNorm variable -> BatchNorm2d-style key, for params and for batch_stats
+_BN_PARAMS = {"scale": "weight", "bias": "bias"}
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _bn_paths(flax_path: tuple, torch_prefix: str) -> list:
+    """(flax path of a BatchNorm_0, torch prefix of its ``bn``) of one residual block's three BNs."""
+    return [(flax_path + ("BatchNorm_0",), torch_prefix + ".bn")] + [
+        (flax_path + (f"ConvModule_{i}", "BatchNorm_0"), f"{torch_prefix}.conv.{i + 1}.bn") for i in range(2)]
+
+
+def _res_block(flax_path: tuple, torch_prefix: str, batch_norm: bool = False) -> dict:
     """residual_block: conv.1 / conv.2 are conv_modules whose Conv2d is ``.conv``."""
     m = {}
     m.update(_conv_entry(flax_path + ("ConvModule_0", "Conv_0"), torch_prefix + ".conv.1.conv"))
     m.update(_conv_entry(flax_path + ("ConvModule_1", "Conv_0"), torch_prefix + ".conv.2.conv"))
+    if batch_norm:
+        for bn_path, bn_prefix in _bn_paths(flax_path, torch_prefix):
+            m.update({bn_path + (f,): (f"{bn_prefix}.{t}", None) for f, t in _BN_PARAMS.items()})
     return m
 
 
-def _down_or_middle(flax_path: tuple, torch_prefix: str, seq: str) -> dict:
+def _trunks() -> list:
+    """(flax path, torch prefix, Sequential name, has BN when the model does) of the 9 trunks."""
+    out = [((f"DownRes_{i}",), f"conv{i + 1}", "dconv", True) for i in range(4)]
+    out.append((("Middle_0",), "mid", "mconv", True))
+    out += [((f"UpRes_{i}", "Middle_0"), f"{t}.uconv.1", "mconv", False)  # UpRes's middle never has BN
+            for i, t in enumerate(["uconv4", "uconv3", "uconv2", "uconv1"])]
+    return out
+
+
+def _down_or_middle(flax_path: tuple, torch_prefix: str, seq: str, batch_norm: bool = False) -> dict:
     """down / middle: Sequential(Conv2d, residual_block, residual_block, ReLU)."""
     m = {}
     m.update(_conv_entry(flax_path + ("Conv_0",), f"{torch_prefix}.{seq}.0"))
-    m.update(_res_block(flax_path + ("ResidualBlock_0",), f"{torch_prefix}.{seq}.1"))
-    m.update(_res_block(flax_path + ("ResidualBlock_1",), f"{torch_prefix}.{seq}.2"))
+    m.update(_res_block(flax_path + ("ResidualBlock_0",), f"{torch_prefix}.{seq}.1", batch_norm))
+    m.update(_res_block(flax_path + ("ResidualBlock_1",), f"{torch_prefix}.{seq}.2", batch_norm))
     return m
 
 
-def unetp_res_name_map() -> dict:
-    """flax param path -> (torch state_dict key, flax transpose) for UNetPRes."""
+def unetp_res_name_map(batch_norm: bool = False) -> dict:
+    """flax param path -> (torch state_dict key, flax transpose) for UNetPRes;
+    ``batch_norm`` adds the BN scales and biases (the module docstring)."""
     m = {
         ("w",): ("w", None),
         ("alpha",): ("alpha", None),
         ("eta",): ("eta", None),
     }
-    for i in range(4):
-        m.update(_down_or_middle((f"DownRes_{i}",), f"conv{i + 1}", "dconv"))
-    m.update(_down_or_middle(("Middle_0",), "mid", "mconv"))
-    for i, t in enumerate(["uconv4", "uconv3", "uconv2", "uconv1"]):
-        m.update(_conv_entry((f"UpRes_{i}", "ConvTranspose_0"), f"{t}.dconv"))
-        m.update(_down_or_middle((f"UpRes_{i}", "Middle_0"), f"{t}.uconv.1", "mconv"))
+    for i, (path, prefix, seq, bn) in enumerate(_trunks()):
+        if i >= 5:  # UpRes: its ConvTranspose, then its middle
+            m.update(_conv_entry((path[0], "ConvTranspose_0"), prefix[: -len(".uconv.1")] + ".dconv"))
+        m.update(_down_or_middle(path, prefix, seq, batch_norm and bn))
     m.update(_conv_entry(("Conv_0",), "outc.conv"))
     return m
 
 
-def state_dict_from_jax_params(params: Mapping, name_map: dict | None = None) -> dict:
+def unetp_res_batch_stats_map() -> dict:
+    """flax batch_stats path (``.../BatchNorm_0/mean`` and ``var``) -> torch
+    buffer key (``....bn.running_mean`` and ``running_var``) for UNetPRes
+    with ``batch_norm``."""
+    m = {}
+    for path, prefix, seq, bn in _trunks():
+        if bn:
+            for blk in range(2):
+                for bn_path, bn_prefix in _bn_paths(path + (f"ResidualBlock_{blk}",), f"{prefix}.{seq}.{blk + 1}"):
+                    m.update({bn_path + (f,): f"{bn_prefix}.{t}" for f, t in _BN_STATS.items()})
+    return m
+
+
+def state_dict_from_jax_params(params: Mapping, name_map: dict | None = None,
+                               batch_stats: Mapping | None = None) -> dict:
     """A torch state_dict from the JAX package's params tree (arrays of any
-    kind numpy can read). ``name_map`` defaults to :func:`unetp_res_name_map`;
-    the entries of a plastic=False model (no ``w``/``alpha``/``eta``) are
-    skipped when the tree lacks them."""
-    name_map = unetp_res_name_map() if name_map is None else name_map
+    kind numpy can read). ``name_map`` defaults to :func:`unetp_res_name_map`
+    (with the BN entries when ``batch_stats``, the JAX ``batch_stats``
+    collection, is given: its running means and variances join the
+    state_dict); the entries of a plastic=False model (no ``w``/``alpha``/
+    ``eta``) are skipped when the tree lacks them."""
+    if name_map is None:
+        name_map = unetp_res_name_map(batch_norm=batch_stats is not None)
+    if batch_stats is not None:
+        name_map = dict(name_map)
+        name_map.update({("batch_stats",) + path: (key, None) for path, key in unetp_res_batch_stats_map().items()})
+        params = {**params, "batch_stats": batch_stats}
     out = {}
     for flax_path, (torch_key, perm) in name_map.items():
         node = params

@@ -110,23 +110,49 @@ def test_cli_default_device_is_cuda(tmp_path):
         ttuned.main(["--synthetic", "10", "--epochs", "1", "--neurons", "2", "--out", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flags", [["--trunk-pad", "128"], ["--arch", "unet"], ["--devices", "2"],
-                                   ["--compute-dtype", "bfloat16"], ["--rng-impl", "rbg"], ["--fast-dw"],
-                                   ["--remat-trunk"], ["--patch-conv", "32"]])
+# the ids of the cases as they were when the options of test_cli_train_ported_flags_run raised too
+@pytest.mark.parametrize("flags", [pytest.param(["--arch", "unet"], id="flags1"),
+                                   pytest.param(["--devices", "2"], id="flags2"),
+                                   pytest.param(["--compute-dtype", "bfloat16"], id="flags3")])
 def test_cli_train_unported_flags_raise(tmp_path, flags):
     with pytest.raises(ValueError, match="does not have"):
         ttrain.main(["--synthetic", "10", "-o", str(tmp_path), "-e", "1", "--neurons", "2", "--device", "cpu"]
                     + flags)
 
 
+@pytest.mark.parametrize("flags,attr,value", [(["--trunk-pad", "128"], "trunk_pad", 128),
+                                              (["--remat-trunk"], "remat_trunk", True),
+                                              (["--fast-dw"], "fast_dw", True),
+                                              (["--patch-conv", "32"], "patch_conv", 32),
+                                              (["--rng-impl", "rbg"], None, None)])
+def test_cli_train_ported_flags_run(tmp_path, flags, attr, value):
+    res = ttrain.main(["--synthetic", "5", "-o", str(tmp_path), "-e", "1", "--neurons", "2", "--device", "cpu"]
+                      + flags)
+    assert np.isfinite(res.all_losses).all() and res.state.step == 4
+    if attr is not None:
+        assert getattr(res.model, attr) == value
+
+
 def test_cli_infer_unported_flags_raise(trained, tgs_dir, tmp_path):
     pth = str(trained[0] / "train_net.pth")
     base = ["-m", pth, "-i", tgs_dir, "-o", str(tmp_path), "--neurons", "2", "--device", "cpu"]
-    for flags in (["--visualize"], ["--devices", "2"], ["--trunk-pad", "128"]):
+    for flags in (["--visualize"], ["--devices", "2"]):
         with pytest.raises(ValueError, match="does not have"):
             tinfer.main(base + flags)
     with pytest.raises(ValueError, match="unknown TTA"):
         tinfer.main(base + ["--tta", "flip"])
+
+
+def test_cli_infer_trunk_pad_matches_jax(trained, tgs_dir, tmp_path):
+    """--trunk-pad 128 (the model trained unpadded, as a user may serve it):
+    the JAX CLI's submission.csv, word for word."""
+    pth = str(trained[0] / "train_net.pth")
+    extra = ["--trunk-pad", "128", "--fixed-threshold", "0.5", "--partial", "-d", "4"]
+    got = tinfer.main(["-m", pth, "-i", tgs_dir, "-o", str(tmp_path / "port"), "--neurons", "2",
+                       "--precision", "parity", "--device", "cpu"] + extra)
+    jinfer.main(["-m", pth, "-i", tgs_dir, "-o", str(tmp_path / "jax"), "--neurons", "2", "--precision", "parity"]
+                + extra)
+    assert open(got).read() == open(tmp_path / "jax" / "submission.csv").read()
 
 
 def test_cli_infer_tta_save_int8(trained, tgs_dir, tmp_path):

@@ -219,13 +219,46 @@ def test_config_fields_and_run_params_match_jax():
     assert TrainConfig().as_run_params(1.0, device="cpu")["stop_time"] == 1.0
 
 
-@pytest.mark.parametrize("option", [dict(arch="unet"), dict(devices=2), dict(trunk_pad=128), dict(patch_conv=32),
-                                    dict(remat_trunk=True), dict(fast_dw=True), dict(compute_dtype="bfloat16"),
-                                    dict(batch_norm=True), dict(bilinear_upsample=True), dict(rng_impl="rbg")])
+# the ids of the cases as they were when every option here raised
+@pytest.mark.parametrize("option", [pytest.param(dict(arch="unet"), id="option0"),
+                                    pytest.param(dict(devices=2), id="option1"),
+                                    pytest.param(dict(compute_dtype="bfloat16"), id="option6"),
+                                    pytest.param(dict(batch_norm=True), id="option7")])
 def test_unported_options_raise(option):
     (name, _), = option.items()
     with pytest.raises(ValueError, match=name):
         driver.build_model(TrainConfig(**option))
+
+
+@pytest.mark.parametrize("option,attr,value", [
+    (dict(trunk_pad=32), "trunk_pad", 32),  # takes effect: the model pads to it
+    (dict(remat_trunk=True), "remat_trunk", True),  # takes effect: the trunk is checkpointed
+    (dict(patch_conv=32), "patch_conv", 32),  # recorded; a TPU lowering of the same conv
+    (dict(fast_dw=True), "fast_dw", True),  # recorded; a TPU lowering of the same conv
+    (dict(bilinear_upsample=True), "bilinear_upsample", True),  # recorded; unused by UNetPRes
+    (dict(rng_impl="rbg"), None, None),  # the JAX PRNG: no trace in the model
+    (dict(rng_impl="unsafe_rbg"), None, None),
+])
+def test_ported_options_accepted(option, attr, value):
+    cfg = TrainConfig(im_width=SIZE, neurons=2, **option)
+    m = driver.build_model(cfg)
+    if attr is not None:
+        assert getattr(m, attr) == value
+    plain = driver.build_model(TrainConfig(im_width=SIZE, neurons=2))
+    sd, sd0 = m.state_dict(), plain.state_dict()  # the same parameters from the same seed
+    assert list(sd) == list(sd0) and all(torch.equal(sd[k], sd0[k]) for k in sd)
+
+
+def test_unknown_rng_impl_raises():
+    with pytest.raises(ValueError, match="rng_impl"):
+        driver.build_model(TrainConfig(rng_impl="philox"))
+
+
+def test_unported_option_messages_give_reasons():
+    with pytest.raises(ValueError) as e:
+        driver.build_model(TrainConfig(arch="unet", devices=2, compute_dtype="bfloat16", batch_norm=True))
+    for reason in ("A5", "A6", "A4d", "batch_stats"):
+        assert reason in str(e.value)
 
 
 def test_accepted_options_and_no_plastic():
