@@ -169,6 +169,29 @@ is non-zero:
      1e-4 x max(1, max|ref|)). fold_hires, patch_conv and fast_dw: the
      default model's loss, activ and gradients bit for bit. Finally every
      kernel is in the kernels line with every key.
+  15. the other two model families at full width. The classic UNetP
+     (nbf=128, 128x128 tiles, seeded weights; hebb, oja, and oja with the
+     bilinear upsample): a B=128 chunk on the card against the CPU port
+     (activout and the trace within 1e-4), one plastic-head launch a chunk
+     and no other kernel, tiles/s on 4 chunks (host clock, median of 3);
+     tta4 folded == one pass a view, the exported identity artifact == the
+     live path and MaskPredictor.from_pth(arch="unet") of the port's .pth ==
+     the live path, each by torch.equal; 8 B=1 training steps, hebb and oja,
+     eager against the CPU port (losses 5e-5, parameters 5e-4, trace 1e-4,
+     eta exactly 0.01) and as a CUDA graph == eager bit for bit, 1 head launch
+     a step, the graph step's ms; start_train(arch="unet") on 32 128-px
+     tiles for 2 epochs, a .pth resume, start_inference to submission.csv,
+     and cli.train --arch unet --synthetic 40 raising the 101-px geometry
+     error. The CoordConv U-Net (128 px, with_r, batch 8): the forward
+     against the CPU port (1e-4), 3 epochs of do_training on 80 tiles
+     against the CPU port (per-epoch loss and val_loss within 2e-4; the
+     checkpoint files and the history pickle), its steady-state samples/s
+     (do_training's epoch loop, fit_epoch, over 320 tiles: the median of 3
+     epochs after a warm-up one), and
+     cli.coord_conv --train --inference --short-run --epochs 2 to
+     submission-6.csv. Then the head at n=128, B=128 and B=1 against its
+     plain version (1e-4 * max(1, max|ref|)): kernel, plain, torch.bmm of the
+     product, bound.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
 belong to the entry's "shape"; "launches" counts the serving request of
@@ -201,6 +224,11 @@ padded eager step at B=1 and at lanes=128), launches_plain_step_lanes,
 launches_remat_step_lanes, launches_plain_step_b1, launches_remat_step_b1
 (one forward and backward, dropout 0.5, without and with remat_trunk),
 launches_bn_step_b128 (a batch_norm forward and backward at B=128).
+Phase 15 adds to every entry launches_unet_chunk (one classic UNetP
+serving chunk) and launches_unet_step (one classic eager B=1 step), and to
+the plastic_head entry its times at n=128 (keys ending in _n128 for B=128
+and _n128_b1 for B=1: ms, plain_ms, bmm_ms, bound_ms, bound_by,
+max_abs_err) and classic_tiles_s, UNetP's serving tiles/s by variant.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -2711,6 +2739,313 @@ def phase_model_options(dev, smi, name, serving_tiles_s):
     return keys, counts
 
 
+# --------------------------------------------------------------------------- phase 15
+
+CLASSIC_NBF = 128  # UNetP's working geometry: 128-px tiles, nbf = 128
+CLASSIC_SERVE_TILES = 4 * B  # the timed request: 4 chunks
+COORD_SIZE, COORD_TILES, COORD_EPOCHS, COORD_BATCH = 128, 80, 3, 8  # 72 train (9 batches) / 8 validation tiles
+COORD_LOSS_ATOL = 2e-4  # CoordConv per-epoch losses, card against the CPU port (27 Adam steps, fp32)
+COORD_PROB_ATOL = 1e-4  # CoordConv probabilities, card against the CPU port
+COORD_RATE_TILES = 320  # the steady-state rate: fit_epoch over 40 batches, after a warm-up epoch
+
+
+def classic_tiles(n: int, seed: int, size: int = CLASSIC_NBF):
+    """(images (N, size, size, 1) NHWC with the channel's stride 0, as numpy's newaxis gives, masks (N, size, size))."""
+    from plastic_unet_tpu_torch.data.synthetic import synthetic_tiles
+
+    x, y = synthetic_tiles(n, size=size, seed=seed)
+    return x[:, 0, :, :, None], y[:, 0]
+
+
+def classic_model(rule: str, seed: int, **kw):
+    from plastic_unet_tpu_torch.models.unet_classic import UNetP
+
+    return UNetP(nbf=CLASSIC_NBF, rule=rule, generator=torch.Generator().manual_seed(seed), **kw)
+
+
+def phase_other_families(dev, smi, name):
+    """The classic UNetP and the CoordConv U-Net at full width. UNetP (nbf=128,
+    128-px tiles, seeded weights, hebb and oja, ConvTranspose and bilinear):
+    B=128 chunks against the CPU port, 1 head launch a chunk and nothing else,
+    tiles/s, tta4 folded == one pass a view, the exported identity artifact ==
+    the live path, MaskPredictor.from_pth(arch="unet"); 8 B=1 training steps
+    eager and as a CUDA graph against the CPU port; start_train(arch="unet")
+    with resume, start_inference and submission.csv; cli.train --arch unet on
+    101-px tiles raising the geometry error; the head at n=128 timed.
+    CoordConvUNet (128 px, batch 8): the forward against the CPU port, 3
+    epochs of do_training against the CPU port, cli.coord_conv to
+    submission-6.csv. Returns (the head's extra keys, the launch counts of a
+    classic chunk and of a classic eager step)."""
+    import pickle
+
+    from plastic_unet_tpu_torch.cli import coord_conv as cli_coord
+    from plastic_unet_tpu_torch.cli import train as cli_train
+    from plastic_unet_tpu_torch.config import TrainConfig
+    from plastic_unet_tpu_torch.data.synthetic import synthetic_split
+    from plastic_unet_tpu_torch.eval.evaluate import predict_masks
+    from plastic_unet_tpu_torch.ops.augment import TTA_VIEWS_4
+    from plastic_unet_tpu_torch.ops.plastic_head import head_plan, plastic_head, plastic_head_plain
+    from plastic_unet_tpu_torch.ops.rle import rle_decode
+    from plastic_unet_tpu_torch.submit.export import export_predictor, load_predictor
+    from plastic_unet_tpu_torch.submit.inference import predict_masks_tta, start_inference
+    from plastic_unet_tpu_torch.submit.server import MaskPredictor
+    from plastic_unet_tpu_torch.train import coord_trainer
+    from plastic_unet_tpu_torch.train.driver import start_train
+    from plastic_unet_tpu_torch.train.loop import create_train_state, make_epoch_fn
+    from plastic_unet_tpu_torch.utils.precision import matmul_precision
+
+    t_phase = time.time()
+    n = CLASSIC_NBF
+    tiles, _ = classic_tiles(CLASSIC_SERVE_TILES, seed=81)
+    X = torch.from_numpy(tiles[:B]).to(dev)
+    counts = {}
+
+    # -- serving: each variant's chunk on the card against the CPU port, and its launches
+    rates = {}
+    for label, rule, kw in (("hebb", "hebb", {}), ("oja", "oja", {}), ("oja bilinear", "oja",
+                                                                      {"bilinear_upsample": True})):
+        model = classic_model(rule, 0, **kw)
+        cpu = copy.deepcopy(model).eval()
+        card = model.to(dev).eval()
+        hebb = card.initial_zero_hebb(B, device=dev)
+        with torch.inference_mode(), matmul_precision("parity"):
+            card(X, hebb)  # builds and loads the kernels before the counted chunk
+            torch.cuda.synchronize()
+            reset_counts()
+            got = card(X, hebb)
+            torch.cuda.synchronize()
+            c = expect_launches(f"MAIN PATH (classic UNetP {label}): one B={B} chunk at {n}x{n}",
+                                {"plastic_head": HEAD_PER_CHUNK}, 15)
+            counts.setdefault("unet_chunk", c)
+            ref = cpu(torch.from_numpy(tiles[:B]), cpu.initial_zero_hebb(B))
+        errs = []
+        for what, g_, r_ in zip(("activ", "activout", "hebb"), got, ref):
+            g_ = g_.cpu()
+            check(bool(torch.isfinite(g_).all()) and tuple(g_.shape) == (B, n, n), f"UNetP {label}: bad {what}")
+            e = float((g_ - r_).abs().max())
+            if what != "activ":
+                check(e <= 1e-4, f"UNetP {label}: {what} card vs CPU max|diff| {e:.3g} > 1e-4")
+            errs.append(f"{what} {e:.3g}")
+        print(f"[15] UNetP {label} nbf={n} B={B}, card vs CPU port (activout and the trace within 1e-4): "
+              + ", ".join(errs), flush=True)
+        pred = MaskPredictor(card, device=None if dev.type == "cuda" else dev)
+        pred.predict_probs(tiles[:B])
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict_probs(tiles)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        rates[label] = CLASSIC_SERVE_TILES / float(np.median(secs))
+    print(f"[15] UNetP serving (NVIDIA card: {smi}), chunk {B}, {CLASSIC_SERVE_TILES} tiles of {n}x{n}, host "
+          f"clock, median of 3: " + ", ".join(f"{k} {v:.1f} tiles/s" for k, v in rates.items()), flush=True)
+
+    # -- tta4 folded against one pass a view; the exported artifact; from_pth (the oja ConvTranspose model)
+    model = classic_model("oja", 0).to(dev).eval()
+    Xt = torch.from_numpy(tiles[:B]).to(dev)
+    seq = predict_masks_tta(model, Xt, transforms=TTA_VIEWS_4, device=dev)
+    folded = predict_masks_tta(model, Xt, transforms=TTA_VIEWS_4, batch_views=True, device=dev)
+    check(bool(torch.equal(seq, folded)), f"UNetP tta4: folded differs from one pass a view, max|diff| "
+          f"{float((seq - folded).abs().max()):.3g}")
+    live = predict_masks(model, Xt, device=dev).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        art = export_predictor(model, os.path.join(tmp, "unetp"), platforms=(dev.type,))
+        t_export = time.perf_counter() - t0
+        loaded = load_predictor(art, device=None if dev.type == "cuda" else dev)
+        check(loaded.meta["model"] == "UNetP" and loaded.meta["neurons"] is None, f"UNetP manifest {loaded.meta}")
+        got = loaded.predict(tiles[:B])
+        check(np.array_equal(got, live), f"UNetP identity artifact vs live max|diff| {float(np.abs(got - live).max()):.3g}")
+        pth = os.path.join(tmp, "unetp.pth")
+        torch.save(model.state_dict(), pth)
+        p = MaskPredictor.from_pth(pth, arch="unet", nbf=n, rule="oja", device=None if dev.type == "cuda" else dev)
+        check(bool(torch.equal(p.predict_probs(tiles[:B]).cpu(), torch.from_numpy(live))),
+              "MaskPredictor.from_pth(arch='unet') differs from the model it was saved from")
+    print(f"[15] UNetP oja: tta4 folded == one pass a view (torch.equal, {B} tiles); the exported identity artifact "
+          f"(chunk {B}, export {t_export:.2f} s) == the live path; MaskPredictor.from_pth(arch='unet') of the port's "
+          f".pth == the live path", flush=True)
+
+    # -- training: 8 B=1 steps eager and as a CUDA graph against the CPU port
+    x8, y8 = classic_tiles(TRAIN_STEPS, seed=82)
+    Xs, Ys = torch.from_numpy(np.ascontiguousarray(x8))[:, None], torch.from_numpy(y8)[:, None]
+    graph_ms = None
+    for rule in ("hebb", "oja"):
+        runs = {}
+        for where, graph in (("cpu", False), ("eager", False), ("graph", True)):
+            d = torch.device("cpu") if where == "cpu" else dev
+            state = create_train_state(classic_model(rule, 3), TRAIN_LR, TRAIN_GAMMA, TRAIN_STEP_SIZE, device=d)
+            if where != "cpu":
+                torch.cuda.synchronize()
+                reset_counts()
+            state, losses = make_epoch_fn(graph=graph and d.type == "cuda")(state, Xs.to(d), Ys.to(d))
+            if where == "eager":
+                torch.cuda.synchronize()
+                c = read_counts()
+                want = scaled(dict.fromkeys(COUNTED, 0) | {"plastic_head": 1}, TRAIN_STEPS)
+                check(c == want, f"UNetP {rule} eager steps: launches {c} != {want}")
+                counts.setdefault("unet_step", {k: v // TRAIN_STEPS for k, v in c.items()})
+            if where == "graph":
+                torch.cuda.synchronize()
+                c = read_counts()
+                want = scaled(dict.fromkeys(COUNTED, 0) | {"plastic_head": 1}, 3)
+                check(c == want, f"UNetP {rule} graph: launches {c} != {want} (2 warm-up steps and the capture)")
+            runs[where] = (state, losses.cpu())
+        (cs, cl), (es, el), (gs, gl) = runs["cpu"], runs["eager"], runs["graph"]
+        e_loss = float((el - cl).abs().max())
+        e_par = max(float((p.detach().cpu() - q.detach()).abs().max())
+                    for p, q in zip(es.model.parameters(), cs.model.parameters()))
+        e_tr = float((es.hebb.cpu() - cs.hebb).abs().max())
+        check(e_loss <= 5e-5 and e_par <= 5e-4 and e_tr <= 1e-4,
+              f"UNetP {rule} training card vs CPU: losses {e_loss:.3g}, parameters {e_par:.3g}, trace {e_tr:.3g}")
+        check(float(es.model.eta.detach()) == float(np.float32(0.01)) and float(cs.model.eta.detach())
+              == float(np.float32(0.01)), "UNetP training: eta moved from 0.01")
+        check(bool(torch.equal(gl, el)) and all(bool(torch.equal(p, q)) for p, q in
+                                               zip(gs.model.parameters(), es.model.parameters()))
+              and bool(torch.equal(gs.hebb, es.hebb)), f"UNetP {rule}: the CUDA graph differs from eager")
+        print(f"[15] UNetP {rule} training, 8 B=1 steps at {n}x{n}: card eager vs CPU port losses {e_loss:.3g} "
+              f"(<= 5e-5), parameters {e_par:.3g} (<= 5e-4), trace {e_tr:.3g} (<= 1e-4), eta exactly 0.01; the "
+              f"CUDA graph == eager bit for bit (losses, parameters, trace)", flush=True)
+        if graph_ms is None:  # the graph step's time: 48 more steps on the captured graph
+            xs48, ys48 = classic_tiles(48, seed=83)
+            X48 = torch.from_numpy(np.ascontiguousarray(xs48))[:, None].to(dev)
+            Y48 = torch.from_numpy(ys48)[:, None].to(dev)
+            epoch = make_epoch_fn()
+            epoch(gs, X48[:2], Y48[:2])  # the capture at this state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epoch(gs, X48, Y48)
+            torch.cuda.synchronize()
+            graph_ms = (time.perf_counter() - t0) / 48 * 1e3
+    print(f"[15] UNetP B=1 training step as a CUDA graph (NVIDIA card: {smi}): {graph_ms:.3f} ms per step, "
+          f"{1e3 / graph_ms:.1f} steps/s (host clock, 48 steps)", flush=True)
+
+    # -- the driver: start_train(arch="unet"), .pth resume, start_inference; cli.train on 101-px tiles
+    x_train, x_valid, y_train, y_valid = synthetic_split(32, 8, size=n, seed=84)
+    on = None if dev.type == "cuda" else dev
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(arch="unet", lr=3e-4, val_every=1, steplr=1e5, im_width=n, im_height=n, im_chan=1,
+                  matmul_precision="parity", loss_space="probs")
+        res = start_train(x_train, x_valid, y_train, y_valid,
+                          TrainConfig(out_dir=os.path.join(tmp, "a"), epochs=2, save_every=2, **kw), device=on)
+        check(type(res.model).__name__ == "UNetP" and len(res.all_losses) == 64
+              and bool(np.isfinite(res.all_losses).all()) and len(res.val_accuracies) == 2, "UNetP driver: bad run")
+        prefix = os.path.join(tmp, "a", "train")
+        res2 = start_train(x_train, x_valid, y_train, y_valid,
+                           TrainConfig(out_dir=os.path.join(tmp, "b"), epochs=1, save_every=1, load=True,
+                                       model_path=prefix + "_net.pth", **kw), device=on)
+        check(len(res2.all_losses) == 32 and bool(np.isfinite(res2.all_losses).all()), "UNetP driver: bad resume")
+        test_imgs, _ = classic_tiles(20, seed=85)
+        ids = [f"syn{i}" for i in range(20)]
+        subm = start_inference(res.model, ids, test_imgs, x_valid, y_valid, out_dir=os.path.join(tmp, "a"),
+                               img_width=n, img_height=n, img_chan=1, device=on)
+        lines = open(subm).read().splitlines()
+        check(lines[0] == "id,rle_mask" and [ln.split(",")[0] for ln in lines[1:]] == ids, "UNetP submission.csv")
+        for ln in lines[1:]:
+            check(rle_decode(ln.split(",", 1)[1], (n, n)).shape == (n, n), "UNetP submission.csv: bad RLE")
+        try:
+            cli_train.main(["--synthetic", "40", "-o", os.path.join(tmp, "c"), "-e", "1", "--arch", "unet"]
+                           + ([] if on is None else ["--device", str(on)]))
+        except ValueError as e:
+            check("divisible by 16" in str(e), f"cli.train --arch unet on 101-px tiles raised another error: {e}")
+            geometry = str(e)
+        else:
+            raise RuntimeError("check failed: cli.train --arch unet on 101-px tiles did not raise")
+    print(f"[15] start_train(arch='unet') {n}x{n}: 2 epochs of 32 tiles (losses finite, 2 validations, last val "
+          f"loss {res.val_test_losses[-1]:.5f}), .pth resume 1 epoch, start_inference -> submission.csv with "
+          f"{len(lines) - 1} rows; cli.train --arch unet --synthetic 40 (101 px) raised: {geometry!r}", flush=True)
+
+    # -- CoordConvUNet: the forward and 3 epochs of do_training against the CPU port; the CLI
+    xc, yc = classic_tiles(COORD_TILES, seed=86, size=COORD_SIZE)
+    xc = np.ascontiguousarray(xc * 255.0, dtype=np.float32)  # the Keras path's 0..255 range
+    yc = np.ascontiguousarray(yc[..., None], dtype=np.float32)
+    cm = coord_trainer.construct_model(COORD_SIZE, COORD_SIZE, 1, with_r=True)
+    with torch.no_grad(), matmul_precision("parity"):
+        got = copy.deepcopy(cm).to(dev).eval()(torch.from_numpy(xc[:COORD_BATCH]).to(dev)).cpu()
+        ref = copy.deepcopy(cm).eval()(torch.from_numpy(xc[:COORD_BATCH]))
+    e_fwd = float((got - ref).abs().max())
+    check(tuple(got.shape) == (COORD_BATCH, COORD_SIZE, COORD_SIZE, 1) and e_fwd <= COORD_PROB_ATOL,
+          f"CoordConvUNet forward card vs CPU max|diff| {e_fwd:.3g} > {COORD_PROB_ATOL}")
+    with tempfile.TemporaryDirectory() as tmp:
+        hist = {}
+        for where in ("cpu", "card"):
+            mf = os.path.join(tmp, f"{where}.ckpt")
+            _, hist[where] = coord_trainer.do_training(copy.deepcopy(cm), xc, yc, epochs=COORD_EPOCHS,
+                                                       max_train_time=-1, model_file=mf, batch_size=COORD_BATCH,
+                                                       device="cpu" if where == "cpu" else on)
+            for f in (mf, mf + "_final", mf + "_final_history.pickle"):
+                check(os.path.exists(f), f"do_training: {f} not written")
+            with open(mf + "_final_history.pickle", "rb") as f:
+                check(pickle.load(f) == hist[where], "do_training: the history pickle differs from the history")
+        e_loss = max(abs(a - b) for key in ("loss", "val_loss") for a, b in zip(hist["card"][key], hist["cpu"][key]))
+        check(e_loss <= COORD_LOSS_ATOL, f"CoordConv do_training card vs CPU: per-epoch losses {e_loss:.3g} > "
+              f"{COORD_LOSS_ATOL}")
+        n_train = (COORD_TILES - int(COORD_TILES * 0.1)) // COORD_BATCH * COORD_BATCH
+        # the steady-state rate: do_training's epoch loop alone (no transfer, validation or checkpoint),
+        # 3 timed epochs after a warm-up one, host clock, median
+        xr, yr = classic_tiles(COORD_RATE_TILES, seed=87, size=COORD_SIZE)
+        Xr = torch.from_numpy(np.ascontiguousarray(xr * 255.0, dtype=np.float32)).to(dev)
+        Yr = torch.from_numpy(np.ascontiguousarray(yr[..., None], dtype=np.float32)).to(dev)
+        rm = copy.deepcopy(cm).to(dev).train()
+        opt = torch.optim.Adam(rm.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+        g_perm = torch.Generator().manual_seed(87)
+        secs = []
+        for i in range(4):
+            perm = torch.randperm(COORD_RATE_TILES, generator=g_perm).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses, _ = coord_trainer.fit_epoch(rm, opt, Xr, Yr, perm, COORD_BATCH)
+            torch.cuda.synchronize()
+            if i:
+                secs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(torch.stack(losses)).all()), "CoordConv fit_epoch: non-finite loss")
+        coord_rate = COORD_RATE_TILES / float(np.median(secs))
+        data = write_tgs_dir(os.path.join(tmp, "tgs"))
+        subm = cli_coord.main(["--data", data, "--out", os.path.join(tmp, "cli"), "--train", "--inference",
+                               "--short-run", "--epochs", "2"] + ([] if on is None else ["--device", str(on)]))
+        lines = open(subm).read().splitlines()
+        check(lines[0] == "id,rle_mask" and sorted(ln.split(",")[0] for ln in lines[1:]) == [f"t{j}" for j in range(7)],
+              "cli.coord_conv: submission-6.csv header or ids")
+    print(f"[15] CoordConvUNet {COORD_SIZE}x{COORD_SIZE} (with_r): B={COORD_BATCH} forward card vs CPU port max|diff| "
+          f"{e_fwd:.3g} (<= {COORD_PROB_ATOL}); do_training {COORD_EPOCHS} epochs of {n_train} tiles (batch "
+          f"{COORD_BATCH}) card vs CPU port per-epoch loss/val_loss max|diff| {e_loss:.3g} (<= {COORD_LOSS_ATOL}): "
+          f"card {hist['card']['loss']} / {hist['card']['val_loss']}; the checkpoint, _final and the history "
+          f"pickle written; on the card {coord_rate:.1f} training samples/s (NVIDIA card: {smi}; fit_epoch over "
+          f"{COORD_RATE_TILES} tiles, batch {COORD_BATCH}, median of 3 epochs after a warm-up one, host clock); "
+          f"cli.coord_conv --train --inference "
+          f"--short-run --epochs 2 -> submission-6.csv with {len(lines) - 1} rows", flush=True)
+
+    # -- the head at n=128, as UNetP runs it: B=128 serving and B=1 training
+    pk = peaks(name)
+    g = torch.Generator(device=dev).manual_seed(15)
+    keys = {}
+    with torch.inference_mode(), matmul_precision("parity"):
+        w = torch.randn((n, n), generator=g, device=dev) * 0.01
+        a = torch.rand((n, n), generator=g, device=dev) * 0.01
+        eta = torch.full((1,), 0.01, device=dev)
+        for b, sfx in ((B, "_n128"), (1, "_n128_b1")):
+            x = torch.randn((b, n, n), generator=g, device=dev)
+            hebb = torch.randn((b, n, n), generator=g, device=dev) * 0.1
+            eff = w + a * hebb
+            e, tol = max_err(plastic_head(w, a, eta, x, hebb, rule="oja")[1],
+                             plastic_head_plain(w, a, eta, x, hebb, rule="oja")[1])
+            check(e <= tol, f"plastic_head B={b} nbf={n}: activout max|diff| {e:.3g} > {tol:.3g}")
+            t = dict(ms=time_ms(lambda: plastic_head(w, a, eta, x, hebb, rule="oja"))[0],
+                     plain_ms=time_ms(lambda: plastic_head_plain(w, a, eta, x, hebb, rule="oja"))[0],
+                     bmm_ms=time_ms(lambda: torch.bmm(x, eff))[0])
+            t["bound_ms"], t["bound_by"] = bound_ms(2 * b * n ** 3 + 8 * b * n * n, 4 * (5 * b * n * n + 2 * n * n + 1),
+                                                    pk)
+            keys.update({k + sfx: v for k, v in t.items()})
+            keys["max_abs_err" + sfx] = e
+            print(f"[15] plastic_head B={b} nbf={n} ({head_plan(b, n).family}, oja free; NVIDIA card: {smi}): kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.bmm of the product alone {t['bmm_ms']:.4f} "
+                  f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound; "
+                  f"activout max|diff| {e:.3g} (<= {tol:.3g})", flush=True)
+    keys["classic_tiles_s"] = rates
+    print(f"[15] phase 15 took {time.time() - t_phase:.1f}s", flush=True)
+    return {"plastic_head": keys}, counts
+
+
 def time_bare_epoch(dev):
     """Seconds of one TIMED_TRAIN-step epoch of make_epoch_fn alone (the CUDA graph step, the loss copies,
     no permutation, augmentation or driver), at cli.train's model, rate and dropout under TIMED_ARGS."""
@@ -2802,6 +3137,11 @@ def main() -> int:
     for entry in kernels:  # phase 14: the padded track's times, and the launches of each option's path
         entry.update(option_keys.get(entry["name"], {}))
         for path, counts in option_counts.items():
+            entry[f"launches_{path}"] = counts[entry.get("counter", entry["name"])]
+    family_keys, family_counts = phase_other_families(dev, smi, name)
+    for entry in kernels:  # phase 15: the head at n=128, and the launches of the classic chunk and step
+        entry.update(family_keys.get(entry["name"], {}))
+        for path, counts in family_counts.items():
             entry[f"launches_{path}"] = counts[entry.get("counter", entry["name"])]
     listed = sorted(e["name"] for e in kernels)
     check(listed == sorted(KERNELS) and all(set(KERNEL_KEYS) <= set(e) for e in kernels),

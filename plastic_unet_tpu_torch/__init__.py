@@ -16,7 +16,11 @@ use).
 Module paths mirror the JAX package, so each module has its counterpart:
 
   - models.unet_res.UNetPRes      <-> plastic_unet_tpu.models.unet_res
-  - models.blocks                 <-> plastic_unet_tpu.models.blocks (residual family)
+  - models.unet_classic.UNetP     <-> plastic_unet_tpu.models.unet_classic (the classic
+    plastic U-Net, on the same plastic head)
+  - models.coord_conv.CoordConvUNet, train.coord_trainer, cli.coord_conv
+    <-> their namesakes (the CoordConv U-Net and its Keras-fit trainer)
+  - models.blocks                 <-> plastic_unet_tpu.models.blocks (residual and classic families)
   - ops.plasticity                <-> plastic_unet_tpu.ops.plasticity
   - ops.plastic_head (csrc/plastic_head.cu) <-> ops.pallas_plastic
   - ops.conv3x3 (csrc/conv3x3.cu) <-> ops.pallas_conv, and the input-gradient
@@ -48,7 +52,8 @@ Tests on the CPU: ``python -m pytest tests/test_torch_*.py -q`` (port
 against JAX, the training trajectory included). On the card:
 ``python3 chip_smoke.py`` (phases 7-10 are the training step, phase 11
 the training entry point, phase 12 the serving features, phase 13 the
-exported serving artifacts).
+exported serving artifacts, phase 14 the UNetPRes options, phase 15 the
+classic and CoordConv families).
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-g", "--gpu", action="store_true", dest="gpu", default=False,
                    help="accepted for reference compatibility; the device is --device")
     p.add_argument("-v", "--debug", action="store_true", dest="debug", default=False, help="show debug information")
-    p.add_argument("--arch", default="unet_res", choices=["unet_res", "unet"], help="model family (unet: not ported)")
+    p.add_argument("--arch", default="unet_res", choices=["unet_res", "unet"],
+                   help="model family (unet: the classic UNetP, 128-px geometry)")
     p.add_argument("--neurons", default=16, type=int)
     p.add_argument("--prule", default="hebb")
     p.add_argument("--precision", default="perf", help="perf|parity (the forward runs in true fp32 either way)")
@@ -26,7 +27,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_model(path: str, cfg, device=None):
-    """The configured UNetPRes with the weights of a reference-format .pth, on ``device``."""
+    """The configured model (train.driver.build_model) with the weights of a reference-format .pth, on ``device``."""
     from plastic_unet_tpu_torch import resolve_device
     from plastic_unet_tpu_torch.train.driver import build_model, load_reference_weights
 

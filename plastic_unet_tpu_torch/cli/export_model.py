@@ -13,9 +13,9 @@ Serve it:
 
     python -m plastic_unet_tpu_torch.submit.http_server --artifact out/artifact [--device cpu]
 
-Not ported, and raising when asked for: ``--compute-dtype bfloat16``
-(ROADMAP.md, queue A item A4d), ``--data-devices`` > 1 (A6), ``--arch unet``
-(A5).
+``--arch unet`` exports the classic UNetP (``--nbf 128``; ``--neurons``
+is not read). Not ported, and raising when asked for: ``--compute-dtype
+bfloat16`` (ROADMAP.md, queue A item A4d), ``--data-devices`` > 1 (A6).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Export a serving artifact (torch.export programs)")
     p.add_argument("--model", "-m", required=True, help=".pth checkpoint (reference format)")
     p.add_argument("--out", "-o", required=True, help="output artifact directory")
-    p.add_argument("--arch", default="unet_res", choices=("unet_res", "unet"), help="model family (unet: not ported)")
+    p.add_argument("--arch", default="unet_res", choices=("unet_res", "unet"),
+                   help="model family (unet: the classic UNetP, 128-px geometry)")
     p.add_argument("--nbf", default=101, type=int)
     p.add_argument("--neurons", default=16, type=int)
     p.add_argument("--prule", default="hebb", choices=("hebb", "oja"))
@@ -50,7 +51,8 @@ def main(argv=None) -> str:
     from plastic_unet_tpu_torch.submit.server import MaskPredictor
 
     check_supported(arch=args.arch, compute_dtype=args.compute_dtype, data_devices=args.data_devices)
-    pred = MaskPredictor.from_pth(args.model, nbf=args.nbf, neurons=args.neurons, rule=args.prule, device="cpu")
+    pred = MaskPredictor.from_pth(args.model, arch=args.arch, nbf=args.nbf, neurons=args.neurons, rule=args.prule,
+                                  device="cpu")
     path = export_predictor(pred.model, args.out, chunk=args.chunk, tta=parse_tta(args.tta),
                             threshold=args.threshold,
                             platforms=tuple(s.strip() for s in args.platforms.split(",") if s.strip()))

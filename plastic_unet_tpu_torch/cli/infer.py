@@ -37,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "Use --fixed-threshold to bypass the search.")
     p.add_argument("--partial", "-p", action="store_true", default=False, help="run on a partial dataset")
     p.add_argument("--partial-size", "-d", dest="partial_size", default=100, type=int, help="partial dataset size")
-    p.add_argument("--arch", default="unet_res", choices=["unet_res", "unet"], help="model family (unet: not ported)")
+    p.add_argument("--arch", default="unet_res", choices=["unet_res", "unet"],
+                   help="model family (unet: the classic UNetP, 128-px geometry)")
     p.add_argument("--neurons", default=16, type=int)
     p.add_argument("--prule", default="hebb")
     p.add_argument("--tta", default="identity",

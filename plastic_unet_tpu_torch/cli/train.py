@@ -40,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--out", dest="out_dir", type=str, required=True, help="output directory")
     p.add_argument("-v", "--debug", action="store_true", dest="debug", default=False, help="show debug information")
     # extensions of the JAX package (those the port lacks raise)
-    p.add_argument("--arch", default="unet_res", choices=["unet_res", "unet"], help="model family (unet: not ported)")
+    p.add_argument("--arch", default="unet_res", choices=["unet_res", "unet"],
+                   help="model family (unet: the classic UNetP, 128-px geometry)")
     p.add_argument("--neurons", default=16, type=int, help="first-layer width (tuned script uses 8)")
     p.add_argument("--dropout", default=0.5, type=float, help="dropout ratio")
     p.add_argument("--alfa-type", default="free", choices=["free", "yoked"])

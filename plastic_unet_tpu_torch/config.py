@@ -5,8 +5,10 @@ with every field and default of the JAX package's TrainConfig.
 Fields of options the port does not have keep their names and defaults so
 that a configuration carries over; ``train.driver.build_model`` raises a
 ``ValueError`` naming each one set away from its default, with its reason
-(``arch="unet"``, ``devices > 1``, ``compute_dtype`` other than float32,
-``batch_norm``: UNetPRes has it, the JAX trainer cannot train it).
+(``devices > 1``, ``compute_dtype`` other than float32, ``batch_norm``:
+the models have it, the JAX trainer cannot train it). ``arch`` is
+``"unet_res"`` (UNetPRes) or ``"unet"`` (the classic UNetP, which refuses
+the trunk options with the JAX driver's message).
 ``trunk_pad`` and ``remat_trunk`` reach the model. ``use_pallas``,
 ``pallas_trunk``, ``patch_conv`` and ``fast_dw`` are TPU lowerings of the
 same math: accepted, they change nothing, since on CUDA the port's kernels
@@ -47,12 +49,12 @@ class TrainConfig:
     im_chan: int = 1
 
     # --- model family / architecture ---
-    arch: str = "unet_res"  # only 'unet_res' is ported
+    arch: str = "unet_res"  # 'unet_res' (UNetPRes) | 'unet' (the classic UNetP)
     neurons: int = 16
     dropout_ratio: float = 0.5
     alfa_type: str = "free"
-    batch_norm: bool = False  # UNetPRes has it; build_model raises (no trainer: the JAX one cannot train it)
-    bilinear_upsample: bool = False  # unused by UNetPRes, as in the JAX package
+    batch_norm: bool = False  # the models have it; build_model raises (no trainer: the JAX one cannot train it)
+    bilinear_upsample: bool = False  # UNetP's upsample; unused by UNetPRes, as in the JAX package
 
     # --- throughput and precision knobs (defaults = reference parity) ---
     lanes: int = 1  # parallel lifetime streams (1 == reference)

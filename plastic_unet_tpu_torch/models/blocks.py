@@ -31,6 +31,12 @@ None until calibrated and absent from the state_dict. ``quant="calib"``
 runs the ordinary forward (the tail on the conv3x3 kernel) and keeps the
 running max|input| of each; ``quant="int8"`` runs each of them through
 ops.quant (the tail as its four int8 convs with the ReLUs and relu-skips).
+
+The classic family (UNetP; the JAX blocks' DoubleConv / UpClassic,
+reference unet_p.py:96-261) is at the end: :class:`DoubleConv`,
+:class:`InConv`, :class:`Down`, :class:`UpClassic`. Its convs, the
+ConvTranspose and the bilinear upsample stay on cuDNN / ATen, as the JAX
+UNetP computes them with ``nn.Conv`` outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -323,3 +329,82 @@ class UpRes(nn.Module):
         x = torch.cat([x, skip], dim=-1)
         x = channel_dropout(x, self.dropout_ratio, self.training, generator, keep)
         return self.uconv[1](x, quant)
+
+
+# ---------------------------------------------------------------------------
+# Classic family (UNetP, reference unet_p.py:96-261)
+# ---------------------------------------------------------------------------
+
+class DoubleConv(nn.Module):
+    """(conv3 [+BN] ReLU) x2 (reference double_conv). ``conv`` is the
+    reference's Sequential: Conv2d, ReLU, Conv2d, ReLU (keys ``conv.0``,
+    ``conv.2``), or with ``batch_norm`` Conv2d, BN, ReLU, Conv2d, BN, ReLU
+    (``conv.0``, ``conv.1``, ``conv.3``, ``conv.4``); the BN is
+    :class:`BatchNorm`, flax semantics, as in the JAX DoubleConv."""
+
+    def __init__(self, in_features: int, features: int, batch_norm: bool = False):
+        super().__init__()
+        layers = []
+        for cin in (in_features, features):
+            layers.append(nn.Conv2d(cin, features, 3, padding=1))
+            if batch_norm:
+                layers.append(BatchNorm(features))
+            layers.append(nn.ReLU())
+        self.conv = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for m in self.conv:
+            x = conv_nhwc(m, x) if isinstance(m, nn.Conv2d) else m(x)
+        return x
+
+
+class InConv(nn.Module):
+    """The first DoubleConv (reference inconv; keys ``conv.conv.*``)."""
+
+    def __init__(self, in_features: int, features: int, batch_norm: bool = False):
+        super().__init__()
+        self.conv = DoubleConv(in_features, features, batch_norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Down(nn.Module):
+    """2x2 max-pool -> DoubleConv (reference down: ``mpconv`` is
+    Sequential(MaxPool2d, double_conv), keys ``mpconv.1.conv.*``)."""
+
+    def __init__(self, in_features: int, features: int, batch_norm: bool = False):
+        super().__init__()
+        self.mpconv = nn.ModuleList([nn.MaxPool2d(2), DoubleConv(in_features, features, batch_norm)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mpconv[1](max_pool_2x2(x))
+
+
+def bilinear_upsample_2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of NHWC ``x`` with align_corners=True (torch
+    nn.Upsample, unet_p.py:153); the JAX package computes the same with two
+    interpolation matmuls."""
+    y = F.interpolate(dense_strides(x).permute(0, 3, 1, 2), scale_factor=2, mode="bilinear", align_corners=True)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+class UpClassic(nn.Module):
+    """Upsample (bilinear align-corners, or ConvTranspose k2 s2 VALID) ->
+    pad/crop the SKIP to the upsampled x (:func:`pad_to_match`, quirk C2
+    kept) -> cat[skip, x] -> DoubleConv (reference up, unet_p.py:148-167).
+    Unlike :class:`UpRes`, the skip is padded and the concat order is
+    [skip, x]. ``up`` is the ConvTranspose2d(in/2, in/2, 2, stride=2), or
+    None in the bilinear variant (the reference's nn.Upsample holds no
+    parameters)."""
+
+    def __init__(self, in_features: int, features: int, bilinear: bool = True, batch_norm: bool = False):
+        super().__init__()
+        ch = in_features // 2
+        self.up = None if bilinear else nn.ConvTranspose2d(ch, ch, 2, stride=2)
+        self.conv = DoubleConv(in_features, features, batch_norm)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = bilinear_upsample_2x_align_corners(x) if self.up is None else conv_nhwc(self.up, x)
+        skip = pad_to_match(skip, x.shape[1], x.shape[2])
+        return self.conv(torch.cat([skip, x], dim=-1))

@@ -72,7 +72,44 @@ class OutConv(nn.Module):
         self.conv = nn.Conv2d(in_features, out_features, 1)
 
 
-class UNetPRes(nn.Module):
+class PlasticHeadNet(nn.Module):
+    """The plastic head's one owner, shared by UNetPRes and UNetP: its
+    parameters ``w``, ``alpha``, ``eta`` at the module's top level (the
+    reference's keys), their initialisation, the zero trace, and the launch:
+    ops.plastic_head (csrc/plastic_head.cu on the card), or under
+    torch.export the same launch as the custom op of ops.export_ops."""
+
+    nbf: int
+    rule: str
+    alfa_type: str
+
+    def add_head(self, nbf: int) -> None:
+        self.w = nn.Parameter(torch.empty(nbf, nbf))
+        self.alpha = nn.Parameter(torch.empty(nbf, nbf))
+        self.eta = nn.Parameter(torch.empty(1))
+
+    def reset_head(self, generator: torch.Generator | None = None) -> None:
+        """w ~ 0.01*randn, alpha ~ 0.01*rand, eta = 0.01 (under no_grad)."""
+        self.w.copy_(0.01 * torch.randn(self.w.shape, generator=generator))
+        self.alpha.copy_(0.01 * torch.rand(self.alpha.shape, generator=generator))
+        self.eta.fill_(0.01)
+
+    def initial_zero_hebb(self, batch: int = 1, device=None) -> torch.Tensor:
+        """Batched zero trace (reference initialZeroHebb)."""
+        return torch.zeros((batch, self.nbf, self.nbf), device=device)
+
+    def head(self, activin: torch.Tensor, hebb: torch.Tensor) -> PlasticOutput:
+        if torch.compiler.is_exporting():  # the same launch as a custom op torch.export can trace
+            activ, activout, new_hebb = plastic_head_forward(
+                self.w, self.alpha, self.eta, activin, hebb, self.rule, self.alfa_type)
+        else:
+            activ, activout, new_hebb = plastic_head(
+                self.w, self.alpha, self.eta, activin, hebb, rule=self.rule, alfa_type=self.alfa_type
+            )
+        return PlasticOutput(activ=activ, activout=activout, hebb=new_hebb)
+
+
+class UNetPRes(PlasticHeadNet):
     """Residual plastic U-Net; arguments mirror the JAX module's, in its
     order, and ``generator``.
 
@@ -106,9 +143,7 @@ class UNetPRes(nn.Module):
         self.fold_hires, self.pallas_trunk, self.fast_dw, self.patch_conv = fold_hires, pallas_trunk, fast_dw, patch_conv
         self.use_pallas, self.bilinear_upsample = use_pallas, bilinear_upsample
         if plastic:
-            self.w = nn.Parameter(torch.empty(nbf, nbf))
-            self.alpha = nn.Parameter(torch.empty(nbf, nbf))
-            self.eta = nn.Parameter(torch.empty(1))
+            self.add_head(nbf)
         bn = batch_norm
         self.conv1 = DownRes(n_channels + 2 if coord_conv else n_channels, n, bn)
         self.conv2 = DownRes(n, n * 2, bn)
@@ -128,9 +163,7 @@ class UNetPRes(nn.Module):
                 if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                     init_conv_(m, generator)
             if self.plastic:
-                self.w.copy_(0.01 * torch.randn(self.w.shape, generator=generator))
-                self.alpha.copy_(0.01 * torch.rand(self.alpha.shape, generator=generator))
-                self.eta.fill_(0.01)
+                self.reset_head(generator)
 
     def quant_ranges(self) -> dict:
         """torch module prefix (``conv1.dconv.0``, ``uconv4.dconv``, ...) ->
@@ -164,10 +197,6 @@ class UNetPRes(nn.Module):
             raise ValueError(f"trunk_pad={tp} too large for {h0}x{w0} input: reflect padding supports at most "
                              f"{3 * h0 - 2}")
         return pad_to(x, tp), h0
-
-    def initial_zero_hebb(self, batch: int = 1, device=None) -> torch.Tensor:
-        """Batched zero trace (reference initialZeroHebb)."""
-        return torch.zeros((batch, self.nbf, self.nbf), device=device)
 
     def forward(self, x: torch.Tensor, hebb: torch.Tensor,
                 generator: torch.Generator | None = None) -> PlasticOutput:
@@ -229,11 +258,4 @@ class UNetPRes(nn.Module):
         if not self.plastic:
             # vanilla U-Net: sigmoid on the trunk logits; the trace passes through
             return PlasticOutput(activ=activin, activout=torch.sigmoid(activin), hebb=hebb)
-        if torch.compiler.is_exporting():  # the same launch as a custom op torch.export can trace
-            activ, activout, new_hebb = plastic_head_forward(
-                self.w, self.alpha, self.eta, activin, hebb, self.rule, self.alfa_type)
-        else:
-            activ, activout, new_hebb = plastic_head(
-                self.w, self.alpha, self.eta, activin, hebb, rule=self.rule, alfa_type=self.alfa_type
-            )
-        return PlasticOutput(activ=activ, activout=activout, hebb=new_hebb)
+        return self.head(activin, hebb)

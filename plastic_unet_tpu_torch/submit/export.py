@@ -40,9 +40,13 @@ APIs used (torch 2.11 on the card's host, 2.13 here): ``torch.export.export``
 ``torch.compiler.is_exporting()``. A program is loaded by the torch that
 made it; another version may refuse the archive.
 
+Both plastic models export: UNetPRes (fp32 or int8) and the classic UNetP
+(fp32; ``"model": "UNetP"`` in the manifest, ``"neurons": null`` as the
+JAX manifest has it). int8 is a UNetPRes mode: the JAX UNetP has no
+``quant`` field, and a UNetP asked to export int8 raises.
+
 Not ported (each raises and names its ROADMAP.md queue item): sharded
-export (``data_devices > 1``, A6), bfloat16 graphs (A4d), the classic
-``unet`` architecture (A5).
+export (``data_devices > 1``, A6), bfloat16 graphs (A4d).
 """
 
 from __future__ import annotations
@@ -83,8 +87,8 @@ def check_supported(*, arch: str = "unet_res", compute_dtype=None, data_devices:
     if compute_dtype not in (None, torch.float32, "float32"):
         raise ValueError(f"compute_dtype={compute_dtype!r}: the port exports fp32 only "
                          "(ROADMAP.md, queue A item A4d)")
-    if arch != "unet_res":
-        raise ValueError(f"arch={arch!r}: the port has UNetPRes only (ROADMAP.md, queue A item A5)")
+    if arch not in ("unet_res", "unet"):
+        raise ValueError(f"unknown arch {arch!r} (use 'unet_res' or 'unet')")
 
 
 class _ServingForward(nn.Module):
@@ -114,8 +118,8 @@ def export_predictor(model: nn.Module, path: str, *, chunk: int = 128, tta: Sequ
                      threshold: float | None = None, platforms: Sequence[str] = PLATFORMS,
                      data_devices: int = 1) -> str:
     """Write the serving forward of ``model`` (a UNetPRes, fp32 or the int8
-    model of submit.quant.quantize_for_serving) as an artifact directory at
-    ``path``; returns ``path``.
+    model of submit.quant.quantize_for_serving, or an fp32 UNetP) as an
+    artifact directory at ``path``; returns ``path``.
 
     chunk: the static batch of the program (the loader pads partial chunks).
     tta: dihedral view names (ops.augment.TTA_TRANSFORMS) folded into the
@@ -134,8 +138,9 @@ def export_predictor(model: nn.Module, path: str, *, chunk: int = 128, tta: Sequ
     bad = [p for p in platforms if p not in PLATFORMS]
     if bad or not platforms:
         raise ValueError(f"platforms must be among {PLATFORMS}, got {platforms}")
-    if model.quant not in ("", "int8"):
-        raise ValueError(f"quant={model.quant!r}: export an fp32 or a calibrated int8 model")
+    quant = getattr(model, "quant", "")  # UNetP has no quant field, as in the JAX module: fp32
+    if quant not in ("", "int8"):
+        raise ValueError(f"quant={quant!r}: export an fp32 or a calibrated int8 model")
     devices = [resolve_device(p) for p in platforms]  # "cuda" raises here when CUDA is absent
     h = w = model.nbf
     os.makedirs(path, exist_ok=True)
@@ -159,7 +164,7 @@ def export_predictor(model: nn.Module, path: str, *, chunk: int = 128, tta: Sequ
         "model": type(model).__name__,
         "compute_dtype": "float32",
         "rule": model.rule,
-        "neurons": int(model.neurons),
+        "neurons": int(model.neurons) if hasattr(model, "neurons") else None,
         "nbf": int(model.nbf),
     }
     with open(os.path.join(path, ARTIFACT_META), "w") as f:

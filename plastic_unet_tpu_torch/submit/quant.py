@@ -22,6 +22,8 @@ from plastic_unet_tpu_torch.utils.precision import serving_numerics
 
 
 def _with_quant(model, mode: str, device):
+    if not hasattr(model, "quant_ranges"):  # UNetP: the JAX module has no quant field either
+        raise ValueError(f"int8 serving is a UNetPRes mode; {type(model).__name__} has no quantized convs")
     q = copy.deepcopy(model).to(device).eval()
     q.quant = mode
     return q

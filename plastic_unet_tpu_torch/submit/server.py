@@ -1,5 +1,5 @@
 """Serving API (counterpart of plastic_unet_tpu.submit.server): a warm
-predictor that loads UNetPRes weights once and answers numpy batches,
+predictor that loads UNetPRes or UNetP weights once and answers numpy batches,
 optionally averaged over TTA views (one pass a view, as the JAX predictor)."""
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from plastic_unet_tpu_torch import resolve_device
+from plastic_unet_tpu_torch.models.unet_classic import UNetP
 from plastic_unet_tpu_torch.models.unet_res import UNetPRes
 from plastic_unet_tpu_torch.ops.rle import encode_batch
 from plastic_unet_tpu_torch.submit.inference import binarize, predict_masks_tta
@@ -17,7 +18,7 @@ from plastic_unet_tpu_torch.utils.torch_interop import load_pth
 
 
 class MaskPredictor:
-    """Batched mask predictor for UNetPRes. ``device=None`` means CUDA;
+    """Batched mask predictor for UNetPRes and UNetP. ``device=None`` means CUDA;
     it raises on a host without CUDA unless ``device="cpu"`` is passed."""
 
     def __init__(self, model: torch.nn.Module, *, chunk: int = 128, tta: Sequence[str] = ("identity",),
@@ -31,16 +32,22 @@ class MaskPredictor:
     @classmethod
     def from_pth(cls, path: str, *, arch: str = "unet_res", nbf: int = 101, neurons: int = 16, rule: str = "hebb",
                  compute_dtype=None, key: str | None = None, device=None, **kw) -> "MaskPredictor":
-        """Load a reference-format UNetPRes ``.pth``; ``key`` picks the
-        state_dict inside a training checkpoint (e.g. ``"model"``). fp32
-        only: ``arch="unet"`` and another ``compute_dtype`` raise."""
-        if arch != "unet_res":
-            raise ValueError(f"arch={arch!r}: the port has UNetPRes only (ROADMAP.md, queue A item 5)")
+        """Load a reference-format ``.pth``: UNetPRes (``arch="unet_res"``) or
+        the classic UNetP (``arch="unet"``; ``neurons`` is not read); ``key``
+        picks the state_dict inside a training checkpoint (e.g.
+        ``"model"``). fp32 only: another ``compute_dtype`` raises."""
+        if arch not in ("unet_res", "unet"):
+            raise ValueError(f"unknown arch {arch!r} (use 'unet_res' or 'unet')")
         if compute_dtype not in (None, torch.float32, "float32"):
+            if arch == "unet":  # the JAX predictor's message
+                raise ValueError("compute_dtype is a unet_res-only knob (arch='unet' is fp32)")
             raise ValueError(f"compute_dtype={compute_dtype!r}: the port serves fp32 only "
                              "(ROADMAP.md, queue A item 4)")
         dev = resolve_device(device)
-        model = UNetPRes(n_channels=1, n_classes=1, nbf=nbf, neurons=neurons, rule=rule)
+        if arch == "unet":
+            model = UNetP(n_channels=1, n_classes=1, nbf=nbf, rule=rule)
+        else:
+            model = UNetPRes(n_channels=1, n_classes=1, nbf=nbf, neurons=neurons, rule=rule)
         model.load_state_dict(load_pth(path, key), strict=True)
         return cls(model, device=dev, **kw)
 

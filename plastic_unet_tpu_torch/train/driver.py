@@ -41,6 +41,7 @@ import torch
 from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.config import TrainConfig
 from plastic_unet_tpu_torch.eval.evaluate import eval_net
+from plastic_unet_tpu_torch.models.unet_classic import UNetP
 from plastic_unet_tpu_torch.models.unet_res import UNetPRes
 from plastic_unet_tpu_torch.ops.augment import draw_augment_choices
 from plastic_unet_tpu_torch.train import loop
@@ -54,45 +55,65 @@ RESUME_STATE = "train_state.pt"  # the port's counterpart of the JAX driver's or
 RNG_IMPLS = ("threefry", "rbg", "unsafe_rbg")  # the JAX CLI's choices; each is one more stream here
 
 
-def build_model(cfg: TrainConfig) -> UNetPRes:
-    """The configured UNetPRes (nbf = image width, as at every reference
-    call site), its weights drawn from ``cfg.seed``. ``trunk_pad`` and
-    ``remat_trunk`` reach the model; ``patch_conv``, ``fast_dw``,
-    ``use_pallas`` and ``pallas_trunk`` (TPU lowerings of the same math),
-    ``bilinear_upsample`` (unused by UNetPRes, as in the JAX package) and
-    ``rng_impl`` (the JAX PRNG; the port draws from torch generators, another
-    stream whichever is named) are accepted and change nothing. Raises
-    ValueError naming every option the port does not have, with its reason."""
+def build_model(cfg: TrainConfig) -> torch.nn.Module:
+    """The configured model (nbf = image width, as at every reference call
+    site), its weights drawn from ``cfg.seed``: UNetPRes for
+    ``arch="unet_res"``, the classic UNetP for ``arch="unet"``. For
+    UNetPRes ``trunk_pad`` and ``remat_trunk`` reach the model;
+    ``patch_conv``, ``fast_dw``, ``use_pallas`` and ``pallas_trunk`` (TPU
+    lowerings of the same math), ``bilinear_upsample`` (unused by UNetPRes,
+    as in the JAX package) and ``rng_impl`` (the JAX PRNG; the port draws
+    from torch generators, another stream whichever is named) are accepted
+    and change nothing. UNetP rejects the trunk options with the JAX
+    driver's message, takes ``bilinear_upsample`` and ``use_pallas``, and,
+    as in the JAX driver, is built plastic whatever ``plastic`` says. Raises
+    ValueError naming every option the port does not have, with its
+    reason."""
+    if cfg.arch not in ("unet_res", "unet"):
+        raise ValueError(f"unknown arch {cfg.arch!r} (use 'unet_res' or 'unet')")
     bad = []
-    if cfg.arch != "unet_res":
-        bad.append(f"arch={cfg.arch!r} (the classic UNetP: queue A item A5)")
     if cfg.devices > 1:
         bad.append(f"devices={cfg.devices} (data parallel: queue A item A6)")
-    if cfg.compute_dtype != "float32":
+    if cfg.compute_dtype != "float32" and cfg.arch == "unet_res":
         bad.append(f"compute_dtype={cfg.compute_dtype!r} (reduced precision: queue A item A4d)")
     if cfg.batch_norm:
-        bad.append("batch_norm (UNetPRes has it, but the JAX train step applies a model with params only and "
-                   "cannot train one with batch_stats, so there is no trainer to port)")
+        bad.append(f"batch_norm ({'UNetPRes' if cfg.arch == 'unet_res' else 'UNetP'} has it, but the JAX train "
+                   "step applies a model with params only and cannot train one with batch_stats, so there is no "
+                   "trainer to port)")
     if bad:
         raise ValueError(f"plastic_unet_tpu_torch does not have {bad} (ROADMAP.md, queue A)")
     if cfg.rng_impl not in RNG_IMPLS:
         raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got {cfg.rng_impl!r}")
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.arch == "unet":
+        # the JAX driver's list and message: UNetP has none of the trunk options
+        unsupported = {"trunk_pad": cfg.trunk_pad, "patch_conv": cfg.patch_conv, "pallas_trunk": cfg.pallas_trunk,
+                       "fast_dw": cfg.fast_dw, "remat_trunk": cfg.remat_trunk}
+        bad = [k for k, v in unsupported.items() if v]
+        if cfg.compute_dtype != "float32":
+            bad.append("compute_dtype")
+        if bad:
+            raise ValueError(f"arch 'unet' does not support {bad}; these options apply to the unet_res trunk only")
+        return UNetP(n_channels=cfg.im_chan, n_classes=1, alfa_type=cfg.alfa_type, rule=cfg.prule,
+                     nbf=cfg.im_width, bilinear_upsample=cfg.bilinear_upsample, use_pallas=cfg.use_pallas,
+                     generator=gen)
     return UNetPRes(n_channels=cfg.im_chan, n_classes=1, neurons=cfg.neurons, dropout_ratio=cfg.dropout_ratio,
                     alfa_type=cfg.alfa_type, rule=cfg.prule, nbf=cfg.im_width,
                     bilinear_upsample=cfg.bilinear_upsample, use_pallas=cfg.use_pallas,
                     pallas_trunk=cfg.pallas_trunk, fast_dw=cfg.fast_dw, patch_conv=cfg.patch_conv,
                     plastic=cfg.plastic, remat_trunk=cfg.remat_trunk, trunk_pad=cfg.trunk_pad,
-                    generator=torch.Generator().manual_seed(cfg.seed))
+                    generator=gen)
 
 
 def name_map_for(cfg: TrainConfig) -> dict:
     """flax path -> (state_dict key, transpose) of the configured model; a
-    plastic=False model has no head keys."""
-    from plastic_unet_tpu_torch.utils.torch_interop import unetp_res_name_map
+    plastic=False config has no head keys (for UNetP too, as in the JAX
+    driver, though UNetP keeps its head: loading such a map then raises)."""
+    from plastic_unet_tpu_torch.utils.torch_interop import unetp_name_map, unetp_res_name_map
 
-    if cfg.arch != "unet_res":
+    if cfg.arch not in ("unet_res", "unet"):
         raise ValueError(f"plastic_unet_tpu_torch has no name map for arch {cfg.arch!r}")
-    m = unetp_res_name_map()
+    m = unetp_res_name_map() if cfg.arch == "unet_res" else unetp_name_map(cfg.bilinear_upsample)
     if not cfg.plastic:
         m = {k: v for k, v in m.items() if k not in (("w",), ("alpha",), ("eta",))}
     return m

@@ -23,6 +23,17 @@ leading ReLU, ``<block>.conv.<i>.bn`` after its conv ``<block>.conv.<i>.conv``
 :func:`unetp_res_batch_stats_map`). No reference-format ``.pth`` with BN
 exists, so the names are BatchNorm2d's; a BN-free ``.pth`` loads strictly
 as before.
+
+The classic UNetP (:func:`unetp_name_map`, the JAX map's entries) has the
+reference's keys (``inc.conv.conv.0``, ``down1.mpconv.1.conv.0``,
+``up1.up``, ``outc.conv``); with ``batch_norm`` its DoubleConv is the
+reference's Sequential with BN (``conv.0``, BN ``conv.1``, ``conv.3``, BN
+``conv.4``), the JAX ``DoubleConv_*/BatchNorm_0|1`` beside each conv
+(:func:`unetp_batch_stats_map` for the statistics). The CoordConv U-Net
+(:func:`coord_conv_name_map`) maps the flax tree's ``Conv_i`` and
+``ConvTranspose_j`` to ``convs.i`` and ``upconvs.j``; a flax
+ConvTranspose with SAME padding does not flip its kernel and torch's does,
+so those four kernels are carried flipped (:data:`FLIPPED_CONVT`).
 """
 
 from __future__ import annotations
@@ -33,6 +44,9 @@ import numpy as np
 import torch
 
 _KERNEL_PERM = (2, 3, 1, 0)  # torch layout -> flax layout, for Conv and ConvTranspose
+# flax ConvTranspose(padding="SAME", transpose_kernel=False) kernel (kh, kw, in, out) <- torch (in, out, kh, kw)
+# transposed by (2, 3, 0, 1) and flipped in kh and kw
+FLIPPED_CONVT = "flipped_convT"
 
 
 def _conv_entry(flax_path: tuple, torch_prefix: str) -> dict:
@@ -111,19 +125,83 @@ def unetp_res_batch_stats_map() -> dict:
     return m
 
 
+def _double_conv(flax_path: tuple, torch_prefix: str, batch_norm: bool = False) -> dict:
+    """double_conv: the reference's Sequential, Conv2d at 0 and 2, or with BN at 0 and 3 (BN at 1 and 4)."""
+    m = {}
+    for i, idx in enumerate((0, 3) if batch_norm else (0, 2)):
+        m.update(_conv_entry(flax_path + (f"Conv_{i}",), f"{torch_prefix}.{idx}"))
+        if batch_norm:
+            m.update({flax_path + (f"BatchNorm_{i}", f): (f"{torch_prefix}.{idx + 1}.{t}", None)
+                      for f, t in _BN_PARAMS.items()})
+    return m
+
+
+def _double_convs(bilinear_upsample: bool = False) -> list:
+    """(flax path, torch prefix of the Sequential) of UNetP's 9 DoubleConvs, and its 4 ConvTransposes."""
+    dcs = [(("DoubleConv_0",), "inc.conv.conv")]
+    dcs += [((f"DoubleConv_{i + 1}",), f"down{i + 1}.mpconv.1.conv") for i in range(4)]
+    dcs += [((f"UpClassic_{i}", "DoubleConv_0"), f"up{i + 1}.conv.conv") for i in range(4)]
+    ups = [] if bilinear_upsample else [((f"UpClassic_{i}", "ConvTranspose_0"), f"up{i + 1}.up") for i in range(4)]
+    return dcs, ups
+
+
+def unetp_name_map(bilinear_upsample: bool = False, batch_norm: bool = False) -> dict:
+    """flax param path -> (torch key, flax transpose) for UNetP (the JAX
+    map's entries); ``batch_norm`` adds the BN scales and biases (the module
+    docstring)."""
+    m = {
+        ("w",): ("w", None),
+        ("alpha",): ("alpha", None),
+        ("eta",): ("eta", None),
+    }
+    dcs, ups = _double_convs(bilinear_upsample)
+    for path, prefix in dcs[:5]:
+        m.update(_double_conv(path, prefix, batch_norm))
+    for i, (path, prefix) in enumerate(dcs[5:]):
+        if ups:  # each UpClassic: its ConvTranspose, then its DoubleConv
+            m.update(_conv_entry(*ups[i]))
+        m.update(_double_conv(path, prefix, batch_norm))
+    m.update(_conv_entry(("Conv_0",), "outc.conv"))
+    return m
+
+
+def unetp_batch_stats_map() -> dict:
+    """flax batch_stats path -> torch buffer key for UNetP with ``batch_norm``."""
+    m = {}
+    for path, prefix in _double_convs()[0]:
+        for i, idx in enumerate((1, 4)):
+            m.update({path + (f"BatchNorm_{i}", f): f"{prefix}.{idx}.{t}" for f, t in _BN_STATS.items()})
+    return m
+
+
+def coord_conv_name_map() -> dict:
+    """flax param path -> (torch key, flax transpose) for the CoordConv
+    U-Net: ``Conv_i`` -> ``convs.i``, ``ConvTranspose_j`` -> ``upconvs.j``
+    (kernel flipped, :data:`FLIPPED_CONVT`)."""
+    m = {}
+    for i in range(20):
+        m.update(_conv_entry((f"Conv_{i}",), f"convs.{i}"))
+    for j in range(4):
+        m.update({(f"ConvTranspose_{j}", "kernel"): (f"upconvs.{j}.weight", FLIPPED_CONVT),
+                  (f"ConvTranspose_{j}", "bias"): (f"upconvs.{j}.bias", None)})
+    return m
+
+
 def state_dict_from_jax_params(params: Mapping, name_map: dict | None = None,
-                               batch_stats: Mapping | None = None) -> dict:
+                               batch_stats: Mapping | None = None, stats_map: dict | None = None) -> dict:
     """A torch state_dict from the JAX package's params tree (arrays of any
     kind numpy can read). ``name_map`` defaults to :func:`unetp_res_name_map`
     (with the BN entries when ``batch_stats``, the JAX ``batch_stats``
     collection, is given: its running means and variances join the
-    state_dict); the entries of a plastic=False model (no ``w``/``alpha``/
-    ``eta``) are skipped when the tree lacks them."""
+    state_dict, named by ``stats_map``, default
+    :func:`unetp_res_batch_stats_map`); the entries of a plastic=False model
+    (no ``w``/``alpha``/``eta``) are skipped when the tree lacks them."""
     if name_map is None:
         name_map = unetp_res_name_map(batch_norm=batch_stats is not None)
     if batch_stats is not None:
+        stats_map = unetp_res_batch_stats_map() if stats_map is None else stats_map
         name_map = dict(name_map)
-        name_map.update({("batch_stats",) + path: (key, None) for path, key in unetp_res_batch_stats_map().items()})
+        name_map.update({("batch_stats",) + path: (key, None) for path, key in stats_map.items()})
         params = {**params, "batch_stats": batch_stats}
     out = {}
     for flax_path, (torch_key, perm) in name_map.items():
@@ -136,7 +214,9 @@ def state_dict_from_jax_params(params: Mapping, name_map: dict | None = None,
                 continue
             raise
         arr = np.asarray(node, dtype=np.float32)
-        if perm is not None:
+        if perm == FLIPPED_CONVT:
+            arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
+        elif perm is not None:
             arr = np.transpose(arr, np.argsort(perm))
         out[torch_key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out

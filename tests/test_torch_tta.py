@@ -182,8 +182,8 @@ def test_from_pth_refuses_unported_options(tmp_path, models):
     _, _, tm = models
     path = str(tmp_path / "m.pth")
     torch.save(tm.state_dict(), path)
-    with pytest.raises(ValueError, match="queue A item 5"):
-        MaskPredictor.from_pth(path, arch="unet", nbf=SIZE, neurons=2, device="cpu")
+    with pytest.raises(ValueError, match="unet_res-only knob"):  # the JAX predictor's refusal
+        MaskPredictor.from_pth(path, arch="unet", nbf=SIZE, compute_dtype=torch.bfloat16, device="cpu")
     with pytest.raises(ValueError, match="queue A item 4"):
         MaskPredictor.from_pth(path, nbf=SIZE, neurons=2, compute_dtype=torch.bfloat16, device="cpu")
     p = MaskPredictor.from_pth(path, nbf=SIZE, neurons=2, tta=("identity", "hflip"), device="cpu")
