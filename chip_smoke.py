@@ -192,6 +192,24 @@ is non-zero:
      submission-6.csv. Then the head at n=128, B=128 and B=1 against its
      plain version (1e-4 * max(1, max|ref|)): kernel, plain, torch.bmm of the
      product, bound.
+  16. data parallel on the card at world size 1: an NCCL process group of one
+     rank (file store in a temporary directory; the CPU port's pmean run in a
+     Gloo group of one rank first, as the reference). UNetPRes neurons=16,
+     seeded, fp32 parity: the DP epoch (parallel.dp) == make_epoch_fn bit for
+     bit, hebb and oja, 8 steps at lanes 1 and 4 at lanes 128, as a CUDA graph
+     (the collective captured) and eager, with the launches of
+     lane_step_counts and one gradient all-reduce a step (all_reduce_mean's
+     count; the graph run 3 steps of them); torch.profiler on an eager DP
+     step and on graph replays at lanes 128 (the all-reduce's host ops, NCCL's
+     kernels and their device time); pmean at lanes 4 (two all-reduces a step,
+     every lane the lanes' mean, losses within 5e-5 and the trace within 1e-4
+     of the CPU port's Gloo run); 2 epochs in one DP dispatch == 2 one-epoch
+     dispatches with shuffle, augmentation and dropout 0.5; the driver's DP
+     route (start_train with the mesh, 32 tiles, dropout, shuffle, augment):
+     2 epochs + a resume for 2 == 4 straight, the resume state gathered over
+     NCCL; predict_masks and tta4 with the mesh == without it on 512 tiles;
+     the graph step with and without the all-reduce at lanes 1 and 128, in
+     turns, and their ratio.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
 belong to the entry's "shape"; "launches" counts the serving request of
@@ -229,6 +247,9 @@ serving chunk) and launches_unet_step (one classic eager B=1 step), and to
 the plastic_head entry its times at n=128 (keys ending in _n128 for B=128
 and _n128_b1 for B=1: ms, plain_ms, bmm_ms, bound_ms, bound_by,
 max_abs_err) and classic_tiles_s, UNetP's serving tiles/s by variant.
+Phase 16 adds to every entry launches_dp_step (one eager data-parallel step
+at lanes=128, world size 1). The residual_tail_backward entry's
+library_chain_ms is cuDNN's chain through autograd at its shape, B=1.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -1335,10 +1356,13 @@ def train_stream(steps: int, lanes: int, seed: int):
     return reshape_stream(x, torch.from_numpy(y[:, 0]), lanes)
 
 
-def train_run(rule, device, X, Y, *, graph, dropout=0.0, lanes=1, drop_seed=None, **options):
+def train_run(rule, device, X, Y, *, graph, dropout=0.0, lanes=1, drop_seed=None, mesh=None, trace_mode="per_device",
+              **options):
     """A seeded full-width model (``options``: UNetPRes's, e.g. trunk_pad)
-    trained over the stream; (state, losses)."""
+    trained over the stream; (state, losses). With a ``mesh``, the
+    data-parallel epoch (phase 16)."""
     from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.parallel.dp import make_dp_epoch_fn
     from plastic_unet_tpu_torch.train.loop import create_train_state, make_epoch_fn
 
     model = UNetPRes(neurons=16, nbf=101, rule=rule, dropout_ratio=dropout,
@@ -1346,7 +1370,8 @@ def train_run(rule, device, X, Y, *, graph, dropout=0.0, lanes=1, drop_seed=None
     gen = None if drop_seed is None else torch.Generator(device=device).manual_seed(drop_seed)
     state = create_train_state(model, TRAIN_LR, TRAIN_GAMMA, TRAIN_STEP_SIZE, lanes=lanes, generator=gen,
                                device=device)
-    return make_epoch_fn(graph=graph)(state, X.to(device), Y.to(device))
+    epoch = make_epoch_fn(graph=graph) if mesh is None else make_dp_epoch_fn(mesh, graph=graph, trace_mode=trace_mode)
+    return epoch(state, X.to(device), Y.to(device))
 
 
 def phase_training(dev):
@@ -1540,15 +1565,18 @@ def phase_training_times(dev, name, errs, step_counts, lane_counts, fwd_table):
                 )
                 # reads g and the five kept activations and four weights, writes dx0 and the gradients
                 tail["bound_ms"], tail["bound_by"] = bound_ms(8 * conv_flops, 7 * act + 8 * 4 * (9 * c * c + c), pk)
-                if b == B:  # the route, the eight launches forced, the fused kernel where it fits, cuDNN's chain
+                leaves = [t.clone().requires_grad_() for t in args]
+                with torch.enable_grad(), training_numerics():  # cuDNN's chain through autograd, at both B
+                    lib_out = cudnn_tail_nhwc(*leaves)
+                    tail["library_chain_ms"] = time_ms(
+                        lambda: torch.autograd.grad(lib_out, leaves, gout, retain_graph=True))[0]
+                del leaves, lib_out
+                if b == 1 and hw == LEVELS[0][0]:
+                    print(f"[10] residual_tail_backward {hw}x{hw}x{c} B=1: cuDNN's chain by autograd (deterministic, "
+                          f"TF32 off) {tail['library_chain_ms']:.4f} ms", flush=True)
+                if b == B:  # the route, the eight launches forced, the fused kernel where it fits
                     tail["route"] = rt.tail_bwd_plan(b, hw, hw, c).family
                     tail["eight_ms"] = time_ms(lambda: rt.residual_tail_backward_eight(gout, *saved, *ks))[0]
-                    leaves = [t.clone().requires_grad_() for t in args]
-                    with torch.enable_grad(), training_numerics():
-                        lib_out = cudnn_tail_nhwc(*leaves)
-                        tail["library_chain_ms"] = time_ms(
-                            lambda: torch.autograd.grad(lib_out, leaves, gout, retain_graph=True))[0]
-                    del leaves, lib_out
                     try:
                         rt.tail_bwd_plan(b, hw, hw, c, family="fused")
                     except ValueError:  # no fused tiling at this width
@@ -1587,25 +1615,13 @@ def phase_training_times(dev, name, errs, step_counts, lane_counts, fwd_table):
                          generator=torch.Generator().manual_seed(3))
         return create_train_state(model, TRAIN_LR, TRAIN_GAMMA, 1e6, lanes=lanes, device=dev)
 
-    def rate(step_fn, state, xs, ys, steps):
-        """Median of three host-clock timings of `steps` steps ending in a synchronize; seconds per step."""
-        secs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(steps):
-                step_fn(state, (xs[i % xs.shape[0]], ys[i % ys.shape[0]]))
-            torch.cuda.synchronize()
-            secs.append((time.perf_counter() - t0) / steps)
-        return float(np.median(secs))
-
     eager, st = make_train_step(), fresh_state()
     eager(st, (X[0], Y[0]))
-    eager_s = rate(eager, st, X, Y, n_steps)
+    eager_s = step_rate(eager, st, X, Y, n_steps)
     st_g = fresh_state()
     graph = GraphTrainStep(st_g, X.shape[1:], Y.shape[1:])
     graph(st_g, (X[0], Y[0]))
-    graph_s = rate(graph, st_g, X, Y, n_steps)
+    graph_s = step_rate(graph, st_g, X, Y, n_steps)
     # The replayed graph is the eager step's kernels with no host in between: its device time is
     # taken as the step's device work, and the eager step's idle share is derived from it (two
     # runs, not one trace; --profile sums the eager step's own kernels).
@@ -1627,7 +1643,7 @@ def phase_training_times(dev, name, errs, step_counts, lane_counts, fwd_table):
     Xl, Yl = Xl.to(dev), Yl.to(dev)
     st_l = fresh_state(lanes=B)
     eager(st_l, (Xl[0], Yl[0]))
-    lane_s = rate(eager, st_l, Xl, Yl, 4)
+    lane_s = step_rate(eager, st_l, Xl, Yl, 4)
     lane_dev_ms, _ = time_ms(lambda: eager(st_l, (Xl[0], Yl[0])), reps=5, warmup=1)
     lane_bound, _ = bound_ms(flops * B, 0.0, pk)
     tails_bwd_l = sum(TAILS_PER_CHUNK[hw] * table[("residual_tail_backward", B, hw)]["ms"] for hw, _ in LEVELS)
@@ -1658,6 +1674,7 @@ def phase_training_times(dev, name, errs, step_counts, lane_counts, fwd_table):
             entry.update({"library_det_ms": one["library_det_ms"], f"library_det_ms_b{B}": many["library_det_ms"]})
         if kname == "residual_tail_backward":  # B=128 by route: the fused kernel at 101^2 and 50^2
             entry.update({f"route_b{B}": many["route"], f"eight_launch_ms_b{B}": many["eight_ms"],
+                          "library_chain_ms": one["library_chain_ms"],
                           f"library_chain_ms_b{B}": many["library_chain_ms"]})
         kernels.append(entry)
     # the fused backward: the lanes path's kernel (no B=1 step takes it); its shape B=128 101x101x16
@@ -3046,6 +3063,282 @@ def phase_other_families(dev, smi, name):
     return {"plastic_head": keys}, counts
 
 
+# --------------------------------------------------------------------------- phase 16
+
+DP_LANE_STEPS = 4  # steps at lanes=B (phase 8's count)
+DP_PMEAN_LANES = 4
+DP_SERVE_TILES = 512
+DP_RATE_STEPS = {1: 48, B: 8}  # steps a timing, median of 3 (phase 10's rate)
+
+
+def step_rate(step_fn, state, xs, ys, steps):
+    """Median of three host-clock timings of `steps` steps ending in a synchronize; seconds per step."""
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step_fn(state, (xs[i % xs.shape[0]], ys[i % ys.shape[0]]))
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) / steps)
+    return float(np.median(secs))
+
+
+def world_one(tmp: str, name: str, device):
+    """A process group of one rank over a file store in ``tmp`` (the backend
+    from the device: Gloo for the CPU, NCCL for CUDA) and its 1-D mesh."""
+    from datetime import timedelta
+
+    from plastic_unet_tpu_torch.parallel import init_distributed, make_mesh
+
+    init_distributed(device, init_method="file://" + os.path.join(tmp, name), rank=0, world_size=1,
+                     timeout=timedelta(seconds=120))
+    return make_mesh(1, device=device)
+
+
+def same_state(a, b) -> bool:
+    return all(bool(torch.equal(p, q)) for p, q in zip(a.model.parameters(), b.model.parameters())) \
+        and bool(torch.equal(a.hebb, b.hebb))
+
+
+def collective_rows(prof, steps: int) -> tuple:
+    """(host ops of the all-reduce a step, {NCCL kernel: device us a step}) from a torch.profiler run."""
+    rows = prof.key_averages()
+    host = {e.key: e.count / steps for e in rows if "allreduce" in e.key.lower().replace("_", "")
+            and e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = {e.key: e.device_time_total / steps for e in rows
+               if e.device_type == torch.autograd.DeviceType.CUDA and "nccl" in e.key.lower()}
+    return host, kernels
+
+
+def phase_data_parallel(dev, smi, name):
+    """Phase 16: the data-parallel path at world size 1 over NCCL (one card),
+    with the CPU port's Gloo world-1 run as the pmean reference."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from plastic_unet_tpu_torch.config import TrainConfig
+    from plastic_unet_tpu_torch.data.synthetic import synthetic_split
+    from plastic_unet_tpu_torch.eval.evaluate import predict_masks
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.ops.augment import draw_augment_choices, parse_tta
+    from plastic_unet_tpu_torch.parallel import dp
+    from plastic_unet_tpu_torch.parallel.mesh import BACKENDS
+    from plastic_unet_tpu_torch.submit.inference import predict_masks_tta
+    from plastic_unet_tpu_torch.train.driver import RESUME_STATE, make_generators, start_train
+    from plastic_unet_tpu_torch.train.loop import GraphTrainStep, create_train_state, make_train_step
+
+    t_phase = time.time()
+    reduces = dp.all_reduce_mean
+    Xp, Yp = train_stream(4, DP_PMEAN_LANES, seed=27)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the reference of check 3: the CPU port's pmean run in a Gloo group of one rank
+        mesh = world_one(tmp, "gloo", "cpu")
+        try:
+            t0 = time.time()
+            cpu_state, cpu_losses = train_run("oja", "cpu", Xp, Yp, graph=False, lanes=DP_PMEAN_LANES, mesh=mesh,
+                                              trace_mode="pmean")
+            t_cpu = time.time() - t0
+        finally:
+            dist.destroy_process_group()
+
+        mesh = world_one(tmp, "nccl", dev)
+        check(dist.get_backend() == BACKENDS[dev.type] and mesh.size() == 1, f"phase 16: {dist.get_backend()}")
+        print(f"[16] {dist.get_backend()} process group of one rank on {name} (NVIDIA card: {smi}); mesh {mesh}",
+              flush=True)
+        try:
+            # 1 and 2: DP == the single-device step bit for bit, graph and eager; launches a step
+            streams = {1: train_stream(TRAIN_STEPS, 1, seed=28), B: train_stream(DP_LANE_STEPS, B, seed=29)}
+            dp_counts = None
+            for rule in ("hebb", "oja"):
+                for lanes, (X, Y) in streams.items():
+                    steps = X.shape[0]
+                    per_step = lane_step_counts(lanes) if lanes > 1 else dict(STEP_COUNTS)
+                    for graph in (None, False):
+                        ref_state, ref_losses = train_run(rule, dev, X, Y, graph=graph, lanes=lanes)
+                        reset_counts()
+                        reduces.launches = 0
+                        state, losses = train_run(rule, dev, X, Y, graph=graph, lanes=lanes, mesh=mesh)
+                        torch.cuda.synchronize()
+                        runs = steps if graph is False else 3  # eager steps, or 2 warm-up steps + the capture
+                        counts = read_counts()
+                        check(counts == scaled(per_step, runs) and reduces.launches == runs,
+                              f"DP {rule} lanes={lanes} graph={graph}: launches {counts} != {scaled(per_step, runs)} "
+                              f"or {reduces.launches} all-reduces != {runs}")
+                        check(bool(torch.equal(losses, ref_losses)) and same_state(state, ref_state),
+                              f"DP {rule} lanes={lanes} graph={graph}: differs from make_epoch_fn: losses max|diff| "
+                              f"{(losses - ref_losses).abs().max().item():.3g}")
+                        if lanes == B and graph is False:
+                            dp_counts = {k: v // steps for k, v in counts.items()}
+                        del ref_state, state
+                    print(f"[16] DP world 1, {rule}, lanes={lanes}, {steps} steps: losses, parameters and trace equal "
+                          f"make_epoch_fn's bit for bit, as a CUDA graph and eager; an eager step "
+                          f"{per_step['plastic_head']} head, {per_step['residual_tail']} tails ({per_step['residual_tail_fused']} fused), "
+                          f"{per_step['residual_tail_backward']} tail backwards "
+                          f"({per_step['residual_tail_backward_fused']} fused) and 1 gradient all-reduce; the graph "
+                          f"run launches them for 3 steps", flush=True)
+            print(f"[16] MAIN PATH (data parallel): launches per eager DP step, lanes={B}: "
+                  f"{({k: v for k, v in dp_counts.items() if v})} and 1 all-reduce", flush=True)
+
+            # the collective in the profiler: one eager DP step and one graph replay, lanes=B
+            X, Y = (t.to(dev) for t in streams[B])
+            reducer = dp.MeshReducer(mesh)
+
+            def fresh(lanes):
+                model = UNetPRes(neurons=16, nbf=101, rule="oja", dropout_ratio=0.0,
+                                 generator=torch.Generator().manual_seed(3))
+                return create_train_state(model, TRAIN_LR, TRAIN_GAMMA, 1e6, lanes=lanes, device=dev)
+
+            st = fresh(B)
+            eager = make_train_step(reducer=reducer)
+            eager(st, (X[0], Y[0]))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                eager(st, (X[1], Y[1]))
+                torch.cuda.synchronize()
+            host, kernels = collective_rows(prof, 1)
+            check(sum(host.values()) >= 1, f"torch.profiler saw no all-reduce in a DP step: {sorted(host)}")
+            g = GraphTrainStep(st, X.shape[1:], Y.shape[1:], reducer=reducer)
+            g(st, (X[0], Y[0]))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for i in range(4):
+                    g(st, (X[i % X.shape[0]], Y[i % Y.shape[0]]))
+                torch.cuda.synchronize()
+            _, graph_kernels = collective_rows(prof, 4)
+            print(f"[16] torch.profiler, one eager DP step lanes={B}: host ops of the all-reduce {host}; NCCL kernels "
+                  f"{kernels or 'none'} ({sum(kernels.values()):.1f} us of device time); a graph replay: NCCL kernels "
+                  f"{graph_kernels or 'none'} ({sum(graph_kernels.values()):.1f} us a step)", flush=True)
+            del st, g, eager
+
+            # 3: pmean at lanes 4: every lane is the lanes' mean; the losses against the CPU port's Gloo run
+            one_ref, _ = train_run("oja", dev, Xp[:1], Yp[:1], graph=False, lanes=DP_PMEAN_LANES)
+            reduces.launches = 0
+            one, _ = train_run("oja", dev, Xp[:1], Yp[:1], graph=False, lanes=DP_PMEAN_LANES, mesh=mesh,
+                               trace_mode="pmean")
+            check(reduces.launches == 2, f"pmean: {reduces.launches} all-reduces in a step, want 2 (gradients, trace)")
+            check(bool(torch.equal(one.hebb, one_ref.hebb.mean(dim=0, keepdim=True).expand_as(one_ref.hebb))),
+                  "pmean: the trace after a step is not the mean of the lanes' traces")
+            state, losses = train_run("oja", dev, Xp, Yp, graph=None, lanes=DP_PMEAN_LANES, mesh=mesh,
+                                      trace_mode="pmean")
+            check(all(bool(torch.equal(state.hebb[0], lane)) for lane in state.hebb), "pmean: the lanes' traces differ")
+            e_loss = float((losses.cpu() - cpu_losses).abs().max())
+            e_tr = float((state.hebb.cpu() - cpu_state.hebb).abs().max())
+            check(e_loss <= 5e-5 and e_tr <= 1e-4, f"pmean: card vs the CPU port's Gloo run: losses {e_loss:.3g} "
+                  f"(5e-5), trace {e_tr:.3g} (1e-4)")
+            print(f"[16] pmean, lanes={DP_PMEAN_LANES}, 4 steps (CUDA graph): every lane's trace is the lanes' mean "
+                  f"(after one step, bit for bit the mean of the single-device lanes); card vs the CPU port's Gloo "
+                  f"world-1 run ({t_cpu:.1f}s): losses max|diff| {e_loss:.3g}, trace {e_tr:.3g}", flush=True)
+            del one, one_ref, state
+
+            # 4: two epochs in one dispatch == two one-epoch dispatches, shuffle, augment, dropout 0.5
+            Xk, Yk = (t.to(dev) for t in train_stream(4, DP_PMEAN_LANES, seed=30))
+            runs = []
+            for per in (2, 1):
+                dropout, gens = make_generators(TrainConfig(seed=13), dev)
+                model = UNetPRes(neurons=16, nbf=101, rule="hebb", dropout_ratio=0.5,
+                                 generator=torch.Generator().manual_seed(3))
+                st = create_train_state(model, TRAIN_LR, TRAIN_GAMMA, TRAIN_STEP_SIZE, lanes=DP_PMEAN_LANES,
+                                        generator=dropout, device=dev)
+                run = dp.make_dp_multi_epoch_fn(mesh, shuffle=True, augment=True)
+                rows = []
+                for _ in range(2 // per):
+                    perms = dp.shard_perms(Xk, gens["shuffle"], per)
+                    choices = torch.stack([draw_augment_choices(Xk.shape[0] * Xk.shape[1], gens["augment"])
+                                           for _ in range(per)])
+                    st, losses = run(st, Xk, Yk, perms, dp.shard_choices(choices, DP_PMEAN_LANES, mesh), epochs=per)
+                    rows.append(losses)
+                runs.append((st, torch.cat(rows), dropout.get_state()))
+            (a, la, ga), (b, lb, gb) = runs
+            check(bool(torch.equal(la, lb)) and same_state(a, b) and bool(torch.equal(ga, gb)),
+                  "DP: 2 epochs in one dispatch differ from 2 one-epoch dispatches")
+            print(f"[16] DP K-epoch dispatch, lanes={DP_PMEAN_LANES}, shuffle, augment, dropout 0.5: 2 epochs in one "
+                  f"dispatch == 2 one-epoch dispatches bit for bit (losses "
+                  f"{[round(v, 5) for v in la.reshape(-1).tolist()]})", flush=True)
+            del runs, a, b, st
+
+            # 5: the driver's DP route (a mesh handed to start_train): 2 epochs + a resume for 2 == 4 straight
+            split = synthetic_split(32, 8, size=101)
+            res = {}
+            for key, epochs, resume in (("straight", 4, ""), ("first", 2, ""), ("resumed", 2, "first")):
+                cfg = TrainConfig(out_dir=os.path.join(tmp, key), epochs=epochs, neurons=16, dropout_ratio=0.5,
+                                  shuffle=True, augment=True, val_every=2, save_every=2,
+                                  resume_orbax=os.path.join(tmp, resume, RESUME_STATE) if resume else "")
+                res[key] = start_train(*split, cfg, device=dev, mesh=mesh)
+                res[key + "_file"] = torch.load(os.path.join(tmp, key, RESUME_STATE), weights_only=True)
+            s4, s2, r2 = res["straight"], res["first"], res["resumed"]
+            check(s2.all_losses + r2.all_losses == s4.all_losses and r2.val_test_losses == s4.val_test_losses[1:]
+                  and r2.val_accuracies == s4.val_accuracies[1:] and same_state(r2.state, s4.state)
+                  and bool(torch.equal(r2.state.generator.get_state(), s4.state.generator.get_state())),
+                  "the driver's DP route: 2 epochs + a resume differ from 4 straight")
+            fs, fr = res["straight_file"], res["resumed_file"]
+            check(fs["world_size"] == 1 and tuple(fs["hebb"].shape) == (1, 101, 101)
+                  and all(bool(torch.equal(fs["generators"][k][0], fr["generators"][k][0])) for k in fs["generators"]),
+                  "the driver's DP route: the resume-state files differ")
+            written = sorted(os.listdir(os.path.join(tmp, "straight")))
+            check({"train_net.pth", "train_parameters.dat", RESUME_STATE} <= set(written), f"driver wrote {written}")
+            print(f"[16] the driver's DP route (start_train with a mesh of one rank, neurons=16, 32 tiles, dropout "
+                  f"0.5, shuffle, augment): 2 epochs + a resume for 2 == 4 straight bit for bit (losses, parameters, "
+                  f"trace, validation {s4.val_test_losses}, every generator through the NCCL gather into {RESUME_STATE}); "
+                  f"wrote {written}", flush=True)
+            del res, s4, s2, r2
+
+            # 6: sharded inference == unsharded
+            model = UNetPRes(neurons=16, nbf=101, rule="hebb", generator=torch.Generator().manual_seed(3))
+            xs = torch.from_numpy(np.ascontiguousarray(np.transpose(
+                synthetic_split(DP_SERVE_TILES, 0, size=101, seed=31)[0], (0, 2, 3, 1)))).to(dev)
+            tta4 = parse_tta("tta4")
+            for label, fn in (("identity", lambda **k: predict_masks(model, xs, chunk=B, device=dev, **k)),
+                              ("tta4", lambda **k: predict_masks_tta(model, xs, transforms=tta4, chunk=B, device=dev,
+                                                                     **k))):
+                check(bool(torch.equal(fn(mesh=mesh), fn())), f"sharded {label} differs from unsharded")
+            print(f"[16] predict_masks and predict_masks_tta(tta4) with the mesh, {DP_SERVE_TILES} tiles at chunk {B}: "
+                  f"equal to the unsharded calls bit for bit", flush=True)
+            del model, xs
+
+            # 7: times: the graph step with and without the all-reduce, in turns; a replay's device time;
+            # at lanes=1 the kernels the DP replay adds, by name (torch.profiler, 4 replays each)
+            rates, device, by_name = {}, {}, {}
+            for lanes, (X, Y) in streams.items():
+                X, Y = X.to(dev), Y.to(dev)
+                for red in (None, reducer, reducer, None):
+                    st = fresh(lanes)
+                    g = GraphTrainStep(st, X.shape[1:], Y.shape[1:], reducer=red)
+                    g(st, (X[0], Y[0]))
+                    key = (lanes, red is not None)
+                    rates.setdefault(key, []).append(step_rate(g, st, X, Y, DP_RATE_STEPS[lanes]))
+                    device.setdefault(key, []).append(time_ms(lambda: g(st, (X[0], Y[0])), reps=10, warmup=1)[0])
+                    if lanes == 1 and key not in by_name:
+                        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                            for _ in range(4):
+                                g(st, (X[0], Y[0]))
+                            torch.cuda.synchronize()
+                        by_name[key] = {e.key: e.device_time_total / 4 for e in prof.key_averages()
+                                        if e.device_type == torch.autograd.DeviceType.CUDA}
+                    del st, g
+                    torch.cuda.empty_cache()
+            for lanes in streams:
+                single, multi = (float(np.mean(rates[(lanes, k)])) for k in (False, True))
+                unit = "steps/s" if lanes == 1 else "samples/s"
+                print(f"[16] graph step lanes={lanes} (host clock, {DP_RATE_STEPS[lanes]} steps, median of 3, in turns "
+                      f"single / DP / DP / single; NVIDIA card: {smi}): make_epoch_fn's "
+                      f"{[round(lanes / s, 1) for s in rates[(lanes, False)]]} {unit}, DP world 1 "
+                      f"{[round(lanes / s, 1) for s in rates[(lanes, True)]]} {unit}; DP / single rate "
+                      f"{single / multi:.4f}; a replay's device time (CUDA events, median of 10): single "
+                      f"{[round(v, 4) for v in device[(lanes, False)]]} ms, DP "
+                      f"{[round(v, 4) for v in device[(lanes, True)]]} ms", flush=True)
+            one, many = by_name[(1, False)], by_name[(1, True)]
+            added = sorted(((k, many.get(k, 0.0) - one.get(k, 0.0)) for k in set(one) | set(many)),
+                           key=lambda kv: -abs(kv[1]))
+            print(f"[16] lanes=1, what the DP replay adds by kernel name (torch.profiler, device us a step, DP - "
+                  f"single; total {sum(many.values()) - sum(one.values()):.1f} of {sum(one.values()):.1f}): "
+                  + "; ".join(f"{d:+.1f} {k[:90]}" for k, d in added[:6]), flush=True)
+        finally:
+            dist.destroy_process_group()
+    print(f"[16] phase 16 took {time.time() - t_phase:.1f}s", flush=True)
+    return dp_counts
+
+
 def time_bare_epoch(dev):
     """Seconds of one TIMED_TRAIN-step epoch of make_epoch_fn alone (the CUDA graph step, the loss copies,
     no permutation, augmentation or driver), at cli.train's model, rate and dropout under TIMED_ARGS."""
@@ -3143,6 +3436,9 @@ def main() -> int:
         entry.update(family_keys.get(entry["name"], {}))
         for path, counts in family_counts.items():
             entry[f"launches_{path}"] = counts[entry.get("counter", entry["name"])]
+    dp_counts = phase_data_parallel(dev, smi, name)
+    for entry in kernels:  # phase 16: the launches of one eager data-parallel step at lanes=B
+        entry["launches_dp_step"] = dp_counts[entry.get("counter", entry["name"])]
     listed = sorted(e["name"] for e in kernels)
     check(listed == sorted(KERNELS) and all(set(KERNEL_KEYS) <= set(e) for e in kernels),
           f"the kernels line lists {listed}, want every kernel {sorted(KERNELS)} with {KERNEL_KEYS}")

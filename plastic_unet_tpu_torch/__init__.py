@@ -6,9 +6,9 @@ validation, masks, RLE strings and ``submission.csv``; the dihedral TTA
 views, the single-image inference, the PNG mask dump, the HTTP endpoint
 and int8 post-training quantization, the exported serving artifacts), its
 reference-parity training step (the B=1 lifetime loop with the detached
-trace, BCE, Adam and a per-sample StepLR; lanes for B>1) and the training
-entry point around it (the driver, checkpoints, data staging and the
-train/eval/infer/tuned_run CLIs) in PyTorch, with
+trace, BCE, Adam and a per-sample StepLR; lanes for B>1; data parallel over
+ranks) and the training entry point around it (the driver, checkpoints,
+data staging and the train/eval/infer/tuned_run CLIs) in PyTorch, with
 the TPU's Pallas kernels, forward and backward, replaced by CUDA kernels
 written for Hopper (``csrc/``, built with ``nvcc`` for ``sm_90a`` on first
 use).
@@ -40,6 +40,9 @@ Module paths mirror the JAX package, so each module has its counterpart:
   - submit.export, cli.export_model <-> their namesakes (torch.export
     programs in place of jax.export's StableHLO; ops.export_ops makes the
     serving kernels custom ops a program can call)
+  - parallel.mesh, parallel.dp, parallel.multihost <-> plastic_unet_tpu.parallel
+    (data parallel: one process a device under torchrun, torch.distributed
+    with NCCL on CUDA and Gloo on the CPU, a DeviceMesh for the JAX Mesh)
 
 Layout: images are NHWC ``(N, H, W, C)`` and masks ``(N, nbf, nbf)``, as in
 the JAX package; activations inside the model are contiguous NHWC tensors.
@@ -53,7 +56,7 @@ against JAX, the training trajectory included). On the card:
 ``python3 chip_smoke.py`` (phases 7-10 are the training step, phase 11
 the training entry point, phase 12 the serving features, phase 13 the
 exported serving artifacts, phase 14 the UNetPRes options, phase 15 the
-classic and CoordConv families).
+classic and CoordConv families, phase 16 data parallel at world size 1).
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ Serve it:
     python -m plastic_unet_tpu_torch.submit.http_server --artifact out/artifact [--device cpu]
 
 ``--arch unet`` exports the classic UNetP (``--nbf 128``; ``--neurons``
-is not read). Not ported, and raising when asked for: ``--compute-dtype
-bfloat16`` (ROADMAP.md, queue A item A4d), ``--data-devices`` > 1 (A6).
+is not read). ``--data-devices N`` writes the per-rank program of a
+``chunk / N`` batch, served by N ranks under torchrun (submit.export). Not
+ported, and raising when asked for: ``--compute-dtype bfloat16``
+(ROADMAP.md, queue A item A4d).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--platforms", default="cpu,cuda", help="comma list of cpu, cuda: one program each")
     p.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"),
                    help="float32 only (bfloat16: not ported)")
-    p.add_argument("--data-devices", default=1, type=int, metavar="N", help="1 only (sharded export: not ported)")
+    p.add_argument("--data-devices", default=1, type=int, metavar="N",
+                   help="export the per-rank program of a chunk/N batch, served by N ranks (torchrun)")
     return p
 
 
@@ -50,11 +53,12 @@ def main(argv=None) -> str:
     from plastic_unet_tpu_torch.submit.export import check_supported, export_predictor
     from plastic_unet_tpu_torch.submit.server import MaskPredictor
 
-    check_supported(arch=args.arch, compute_dtype=args.compute_dtype, data_devices=args.data_devices)
+    check_supported(arch=args.arch, compute_dtype=args.compute_dtype, data_devices=args.data_devices,
+                    chunk=args.chunk)
     pred = MaskPredictor.from_pth(args.model, arch=args.arch, nbf=args.nbf, neurons=args.neurons, rule=args.prule,
                                   device="cpu")
     path = export_predictor(pred.model, args.out, chunk=args.chunk, tta=parse_tta(args.tta),
-                            threshold=args.threshold,
+                            threshold=args.threshold, data_devices=args.data_devices,
                             platforms=tuple(s.strip() for s in args.platforms.split(",") if s.strip()))
     print("Exported serving artifact to:", path)
     return path

@@ -9,9 +9,12 @@ model). The JAX parser's flags plus ``--device`` (default CUDA).
     python -m plastic_unet_tpu_torch.cli.infer -m MODEL.pth -i TGS_DIR -o OUT [--tta tta4] [--save] \
         [--quant int8] [--device cpu]
 
-``--trunk-pad`` must match how the model was trained. Not ported yet, and
-raising when asked for: ``--visualize`` (ROADMAP.md, queue A item 7),
-``--devices`` > 1 (item 6).
+``--trunk-pad`` must match how the model was trained. ``--devices N``
+shards the test prediction's chunks over N ranks under torchrun
+(``python -m torch.distributed.run --nproc-per-node N -m
+plastic_unet_tpu_torch.cli.infer --devices N ...``; rank 0 writes). Not
+ported yet, and raising when asked for: ``--visualize`` (ROADMAP.md, queue
+A item 7).
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted; the CUDA plastic head is the only path")
     p.add_argument("--trunk-pad", type=int, default=0, metavar="SIZE",
                    help="padded trunk (must match how the model was trained; 0 = off)")
-    p.add_argument("--devices", type=int, default=1, help="devices to shard inference over (only 1 is ported)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="devices to shard inference over, one rank each (launch with torchrun --nproc-per-node N)")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
                    help="int8 serving: calibrate activation ranges on validation images, then run the conv "
                         "trunk as int8 convs with int32 accumulation; the threshold search runs on the "
@@ -65,10 +69,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    lacking = [flag for flag, on in (("--visualize (queue A item 7)", args.visualize),
-                                     ("--devices (queue A item 6)", args.devices > 1)) if on]
-    if lacking:
-        raise ValueError(f"plastic_unet_tpu_torch.cli.infer does not have {lacking} yet (ROADMAP.md)")
+    if args.visualize:
+        raise ValueError("plastic_unet_tpu_torch.cli.infer does not have --visualize yet (ROADMAP.md, queue A item 7)")
+    if args.devices <= 1:
+        return _infer(args, args.device, None)
+    import torch.distributed as dist
+
+    from plastic_unet_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    dev = init_distributed(args.device)  # raises, naming torchrun, outside its environment
+    try:
+        return _infer(args, dev, make_mesh(args.devices, device=dev))
+    finally:
+        dist.destroy_process_group()
+
+
+def _infer(args, device, mesh):
     os.makedirs(args.out_dir, exist_ok=True)
 
     from plastic_unet_tpu_torch.ops.augment import parse_tta
@@ -101,7 +117,7 @@ def main(argv=None):
                       im_height=t_img_height, im_chan=t_img_chan, use_pallas=args.use_pallas,
                       trunk_pad=args.trunk_pad)
     with matmul_precision(args.precision):
-        model = load_model(args.model, cfg, args.device)
+        model = load_model(args.model, cfg, device)
         if args.quant == "int8":
             import numpy as np
 
@@ -110,7 +126,7 @@ def main(argv=None):
             xv_nhwc = np.transpose(np.asarray(x_valid, dtype=np.float32), (0, 2, 3, 1))
             n_cal = max(1, min(args.quant_calib, len(xv_nhwc)))
             print("Calibrating int8 serving on %d validation images" % n_cal)
-            model = quantize_for_serving(model, xv_nhwc[:n_cal], device=args.device)
+            model = quantize_for_serving(model, xv_nhwc[:n_cal], device=device)
         if args.fixed_threshold is not None:
             run_params = {
                 "out_dir": args.out_dir,
@@ -120,10 +136,10 @@ def main(argv=None):
                 "mask_threshold": args.fixed_threshold,
                 "subm_file": "submission.csv",
             }
-            return predict(model, ids, images, run_params, save_masks=args.save, tta=tta, device=args.device)
+            return predict(model, ids, images, run_params, save_masks=args.save, tta=tta, device=device, mesh=mesh)
         return start_inference(model, ids, images, x_valid, y_valid, out_dir=args.out_dir, img_width=t_img_width,
                                img_height=t_img_height, img_chan=t_img_chan, save_masks=args.save, tta=tta,
-                               debug=True, device=args.device)
+                               debug=True, device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

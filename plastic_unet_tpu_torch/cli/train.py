@@ -5,7 +5,13 @@ src/train.py:316-358), plus ``--device``.
     python -m plastic_unet_tpu_torch.cli.train -o OUT (-d TGS_DIR | -i DATASET.hdf5 | --synthetic N) [...]
 
 ``--device`` defaults to CUDA and raises on a host without it; ``--device
-cpu`` runs the plain PyTorch versions on the CPU. ``--trunk-pad`` and
+cpu`` runs the plain PyTorch versions on the CPU. ``--devices N`` trains
+data parallel on N ranks, one process each, under torchrun (NCCL on CUDA,
+Gloo with ``--device cpu``; ``--trace-mode`` picks the trace's coherence):
+
+    python -m torch.distributed.run --nproc-per-node N -m plastic_unet_tpu_torch.cli.train --devices N [...]
+
+``--trunk-pad`` and
 ``--remat-trunk`` reach the model; ``--fast-dw``, ``--patch-conv``,
 ``--use-pallas``, ``--pallas-trunk`` and ``--rng-impl`` are accepted and
 change nothing. A flag for an option the port does not have yet raises
@@ -46,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dropout", default=0.5, type=float, help="dropout ratio")
     p.add_argument("--alfa-type", default="free", choices=["free", "yoked"])
     p.add_argument("--lanes", default=1, type=int, help="parallel lifetime streams (1 = reference semantics)")
-    p.add_argument("--devices", default=1, type=int, help="data-parallel devices (only 1 is ported)")
+    p.add_argument("--devices", default=1, type=int,
+                   help="data-parallel devices, one rank each (launch with torchrun --nproc-per-node N)")
     p.add_argument("--trace-mode", default="per_device", choices=["per_device", "pmean"],
                    help="hebb-trace coherence across data-parallel devices")
     p.add_argument("--precision", default="perf", help="precision policy of cuBLAS/cuDNN calls: perf|parity "
@@ -116,6 +123,20 @@ def load_training_data(args, size: int = 101):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.devices <= 1:
+        return _train(args, args.device)
+    import torch.distributed as dist
+
+    from plastic_unet_tpu_torch.parallel.mesh import init_distributed
+
+    dev = init_distributed(args.device)  # raises, naming torchrun, outside its environment
+    try:
+        return _train(args, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device):
     os.makedirs(args.out_dir, exist_ok=True)
     print(args)
 
@@ -165,7 +186,7 @@ def main(argv=None):
         seed=args.seed,
         resume_orbax=args.resume_state,
     )
-    return start_train(x_train, x_valid, y_train, y_valid, cfg, device=args.device)
+    return start_train(x_train, x_valid, y_train, y_valid, cfg, device=device)
 
 
 if __name__ == "__main__":

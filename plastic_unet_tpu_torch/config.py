@@ -5,8 +5,8 @@ with every field and default of the JAX package's TrainConfig.
 Fields of options the port does not have keep their names and defaults so
 that a configuration carries over; ``train.driver.build_model`` raises a
 ``ValueError`` naming each one set away from its default, with its reason
-(``devices > 1``, ``compute_dtype`` other than float32, ``batch_norm``:
-the models have it, the JAX trainer cannot train it). ``arch`` is
+(``compute_dtype`` other than float32, ``batch_norm``: the models have it,
+the JAX trainer cannot train it). ``arch`` is
 ``"unet_res"`` (UNetPRes) or ``"unet"`` (the classic UNetP, which refuses
 the trunk options with the JAX driver's message).
 ``trunk_pad`` and ``remat_trunk`` reach the model. ``use_pallas``,
@@ -14,8 +14,9 @@ the trunk options with the JAX driver's message).
 same math: accepted, they change nothing, since on CUDA the port's kernels
 are its only path. ``bilinear_upsample`` is unused by UNetPRes, as in the
 JAX package; ``rng_impl`` names a JAX PRNG, and the port draws from torch
-generators whichever it names. ``trace_mode`` matters only with several
-devices.
+generators whichever it names. ``devices > 1`` trains data parallel, one
+rank a device under torchrun (train.driver.start_train, parallel);
+``trace_mode`` matters only there.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ class TrainConfig:
 
     # --- throughput and precision knobs (defaults = reference parity) ---
     lanes: int = 1  # parallel lifetime streams (1 == reference)
-    devices: int = 1  # data-parallel devices; only 1 is ported
+    devices: int = 1  # data-parallel devices, one rank each (torchrun); 1 = one device, no process group
     loss_space: str = "logits"  # 'logits' (stable) | 'probs' (torch-exact clamp)
     matmul_precision: str = "perf"  # 'parity' for true fp32 (TF32 off)
     use_pallas: bool = False  # accepted; the CUDA head is the only path on the card

@@ -11,12 +11,17 @@ and keeps the first argmax.
 
 The entry points take ``device=None`` (CUDA; see
 plastic_unet_tpu_torch.resolve_device) and move the model there.
+:func:`predict_masks` also takes a data-parallel ``mesh``
+(parallel.mesh.make_mesh): each chunk's batch is split over the ranks,
+each rank runs its share, and an all-gather returns every mask to every
+rank (zero-trace inference needs no other collective).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.ops.iou import threshold_sweep
@@ -36,10 +41,18 @@ def _padded(x: torch.Tensor, chunk: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((chunk - x.shape[0],) + tuple(x.shape[1:]))])
 
 
-def predict_masks(model, X, *, chunk: int = 128, device=None) -> torch.Tensor:
+def predict_masks(model, X, *, chunk: int = 128, device=None, mesh=None) -> torch.Tensor:
     """Sigmoid masks ``(N, nbf, nbf)`` for NHWC images ``X (N, H, W, C)``,
-    with zero traces, on ``device``."""
+    with zero traces, on ``device``. With a ``mesh`` every rank passes the
+    same ``X``; rank r runs samples ``[r*c, (r+1)*c)`` of each chunk, c =
+    chunk / world (``chunk % world`` must be 0), and every rank gets all
+    ``N`` masks."""
     dev = resolve_device(device)
+    world = 1 if mesh is None else mesh.size()
+    if chunk % world:
+        raise ValueError(f"chunk ({chunk}) must be divisible by mesh size ({world})")
+    share = chunk // world
+    mine = slice(0, chunk) if mesh is None else slice(dist.get_rank() * share, (dist.get_rank() + 1) * share)
     model = model.to(dev).eval()
     X = _as_tensor(X, dev)
     n = X.shape[0]
@@ -47,8 +60,13 @@ def predict_masks(model, X, *, chunk: int = 128, device=None) -> torch.Tensor:
     with torch.inference_mode(), serving_numerics():
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            hebb = model.initial_zero_hebb(chunk, device=dev)
-            out[lo:hi] = model(_padded(X[lo:hi], chunk), hebb).activout[: hi - lo]
+            hebb = model.initial_zero_hebb(share, device=dev)
+            pred = model(_padded(X[lo:hi], chunk)[mine], hebb).activout
+            if mesh is not None:
+                parts = [torch.empty_like(pred) for _ in range(world)]
+                dist.all_gather(parts, pred)
+                pred = torch.cat(parts)
+            out[lo:hi] = pred[: hi - lo]
     return out
 
 

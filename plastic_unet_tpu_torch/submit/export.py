@@ -45,8 +45,16 @@ Both plastic models export: UNetPRes (fp32 or int8) and the classic UNetP
 JAX manifest has it). int8 is a UNetPRes mode: the JAX UNetP has no
 ``quant`` field, and a UNetP asked to export int8 raises.
 
-Not ported (each raises and names its ROADMAP.md queue item): sharded
-export (``data_devices > 1``, A6), bfloat16 graphs (A4d).
+Sharded serving (``data_devices=N``, as the JAX artifact's): the program
+is the per-rank graph of a ``chunk / N`` batch (``chunk % N`` must be 0)
+and the manifest says ``data_devices``. Its loader needs an initialized
+process group of N ranks (torchrun; NCCL for "cuda", Gloo for "cpu", as
+parallel.mesh): each rank runs its share of every chunk and an all-gather
+returns the whole chunk to every rank, where the JAX loader places the
+chunk on N local devices.
+
+Not ported (raises and names its ROADMAP.md queue item): bfloat16 graphs
+(A4d).
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from plastic_unet_tpu_torch import resolve_device
@@ -77,13 +86,13 @@ def program_file(platform: str) -> str:
     return f"forward.{platform}.pt2"
 
 
-def check_supported(*, arch: str = "unet_res", compute_dtype=None, data_devices: int = 1) -> None:
-    """Raise for what the port does not export yet, naming its queue item."""
+def check_supported(*, arch: str = "unet_res", compute_dtype=None, data_devices: int = 1, chunk: int = 128) -> None:
+    """Raise for what the port does not export yet, naming its queue item,
+    and for a chunk that ``data_devices`` ranks cannot share evenly."""
     if data_devices < 1:
         raise ValueError(f"data_devices must be >= 1, got {data_devices}")
-    if data_devices > 1:
-        raise ValueError(f"data_devices={data_devices}: sharded export is not ported "
-                         "(ROADMAP.md, queue A item A6)")
+    if chunk % data_devices:
+        raise ValueError(f"chunk ({chunk}) must be divisible by data_devices ({data_devices})")
     if compute_dtype not in (None, torch.float32, "float32"):
         raise ValueError(f"compute_dtype={compute_dtype!r}: the port exports fp32 only "
                          "(ROADMAP.md, queue A item A4d)")
@@ -126,10 +135,11 @@ def export_predictor(model: nn.Module, path: str, *, chunk: int = 128, tta: Sequ
     batch. threshold: if set, the program emits uint8 masks ``p > t`` with
     the float64-exact compare. platforms: "cpu" and/or "cuda", one program
     each; "cuda" needs a CUDA device here (it raises without one).
-    data_devices: 1 (sharded export is not ported)."""
+    data_devices: N > 1 exports the per-rank program of a chunk/N batch, to
+    be served by N ranks (needs no process group here)."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    check_supported(data_devices=data_devices)
+    check_supported(data_devices=data_devices, chunk=chunk)
     transforms = tuple(tta)
     unknown = [t for t in transforms if t not in TTA_TRANSFORMS]
     if unknown or not transforms:
@@ -146,7 +156,7 @@ def export_predictor(model: nn.Module, path: str, *, chunk: int = 128, tta: Sequ
     os.makedirs(path, exist_ok=True)
     for platform, dev in zip(platforms, devices):
         fwd = _ServingForward(copy.deepcopy(model).to(dev).eval(), transforms, threshold).eval()
-        example = torch.zeros((chunk, h, w, model.n_channels), device=dev)
+        example = torch.zeros((chunk // data_devices, h, w, model.n_channels), device=dev)
         with torch.no_grad():
             program = torch.export.export(fwd, (example,))
         torch.export.save(program, os.path.join(path, program_file(platform)))
@@ -181,7 +191,9 @@ class ExportedPredictor:
     O(chunk)), with one chunk in flight: the host issues chunk i+1 (its
     copy in, the program, its copy out, all asynchronous from pinned
     memory) before it waits for chunk i, so the card is not idle while the
-    host issues."""
+    host issues. A sharded artifact (``data_devices`` N > 1) runs on each
+    of N ranks, every rank given the same images: rank r runs share r of
+    each chunk and an all-gather returns the chunk (:meth:`_predict_shared`)."""
 
     def __init__(self, program, meta: dict, device: torch.device):
         self.program = program
@@ -189,6 +201,7 @@ class ExportedPredictor:
         self.chunk = int(meta["chunk"])
         self.threshold = meta.get("threshold")
         self.device = device
+        self.data_devices = int(meta.get("data_devices", 1))
         self._call = program.module()
 
     def warmup(self) -> "ExportedPredictor":
@@ -210,6 +223,8 @@ class ExportedPredictor:
         pad = (-n) % self.chunk
         if pad:
             x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], np.float32)], axis=0)
+        if self.data_devices > 1:
+            return self._predict_shared(x)[:n]
         cuda = self.device.type == "cuda"
         outs, issued = [], None
         with torch.inference_mode(), serving_numerics():
@@ -228,6 +243,21 @@ class ExportedPredictor:
         outs = [o.numpy() for o in outs]
         return np.concatenate(outs, axis=0)[:n]
 
+    def _predict_shared(self, x: np.ndarray) -> np.ndarray:
+        """Chunks of the padded ``x``, each shared by the ranks: this rank's
+        share through the program, the shares all-gathered in rank order."""
+        world, rank = self.data_devices, dist.get_rank()
+        share = self.chunk // world
+        outs = []
+        with torch.inference_mode(), serving_numerics():
+            for i in range(0, x.shape[0], self.chunk):
+                lo = i + rank * share
+                mine = self._call(torch.from_numpy(np.ascontiguousarray(x[lo:lo + share])).to(self.device))
+                parts = [torch.empty_like(mine) for _ in range(world)]
+                dist.all_gather(parts, mine)
+                outs.append(torch.cat(parts).cpu().numpy())
+        return np.concatenate(outs, axis=0)
+
     def predict_rle(self, images: np.ndarray, threshold: float | None = None) -> list:
         """Predict and RLE-encode (submission-format strings). Thresholded
         artifacts emit binary masks already; probability artifacts binarize
@@ -245,7 +275,10 @@ def load_predictor(path: str, device=None) -> ExportedPredictor:
     """Load an :func:`export_predictor` artifact directory onto ``device``
     (None means CUDA, and raises without it unless ``device="cpu"``). Raises
     when the artifact has no program for that device, for another
-    ``format_version``, and for a JAX artifact (``forward.jaxexp``)."""
+    ``format_version``, for a JAX artifact (``forward.jaxexp``), and for a
+    sharded artifact (``data_devices`` N > 1) without a process group of N
+    ranks on the device's backend (then ``device=None`` is the rank's
+    current CUDA device)."""
     programs = [p for p in PLATFORMS if os.path.exists(os.path.join(path, program_file(p)))]
     if not programs and os.path.exists(os.path.join(path, JAX_ARTIFACT)):
         raise ValueError(f"{path} is a JAX artifact ({JAX_ARTIFACT}): load it with "
@@ -260,5 +293,11 @@ def load_predictor(path: str, device=None) -> ExportedPredictor:
     if dev.type not in programs:
         raise ValueError(f"{path} has no program for {dev.type} (it has {programs}); "
                          f"export it with platforms including {dev.type!r}")
+    n_ranks = int(meta.get("data_devices", 1))
+    if n_ranks > 1:
+        from plastic_unet_tpu_torch.parallel.mesh import make_mesh, rank_device
+
+        make_mesh(n_ranks, device=dev)  # raises, naming torchrun, without N ranks on the device's backend
+        dev = rank_device(dev)
     program = torch.export.load(os.path.join(path, program_file(dev.type)))
     return ExportedPredictor(program, meta, dev)

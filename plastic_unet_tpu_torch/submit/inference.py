@@ -25,6 +25,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.data.images import save_mask_png
@@ -45,7 +46,7 @@ def inference(model, img_data, *, device=None) -> np.ndarray:
 
 
 def predict_masks_tta(model, X, *, transforms: Sequence[str] = ("identity",), chunk: int = 128,
-                      batch_views: bool = False, device=None) -> torch.Tensor:
+                      batch_views: bool = False, device=None, mesh=None) -> torch.Tensor:
     """Chunked zero-trace masks ``(N, nbf, nbf)`` of NHWC images ``X``,
     averaged over the TTA views ``transforms`` after each view's inverse.
     One full chunked pass a view, or with ``batch_views`` the T views folded
@@ -53,14 +54,15 @@ def predict_masks_tta(model, X, *, transforms: Sequence[str] = ("identity",), ch
     depend on a sample's place in its chunk, and every layer repeats its
     bits (serving_numerics, models.blocks.dense_strides: ROADMAP.md, C5),
     so both give the same masks. Each view is made contiguous before the
-    forward."""
+    forward. ``mesh``: each chunk split over the ranks (eval.evaluate.predict_masks)."""
     if tuple(transforms) == ("identity",):
-        return predict_masks(model, X, chunk=chunk, device=device)
+        return predict_masks(model, X, chunk=chunk, device=device, mesh=mesh)
     dev = resolve_device(device)
     X = _as_tensor(X, dev)
     if batch_views:
-        return tta_batched_apply(lambda allv: predict_masks(model, allv, chunk=chunk, device=dev), X, transforms)
-    views = [predict_masks(model, TTA_TRANSFORMS[t][0](X, True).contiguous(), chunk=chunk, device=dev)
+        return tta_batched_apply(lambda allv: predict_masks(model, allv, chunk=chunk, device=dev, mesh=mesh), X,
+                                 transforms)
+    views = [predict_masks(model, TTA_TRANSFORMS[t][0](X, True).contiguous(), chunk=chunk, device=dev, mesh=mesh)
              for t in transforms]
     return tta_merge(torch.stack(views, dim=0), transforms, channels_last=False)
 
@@ -92,14 +94,15 @@ def write_submission(path: str, ids: Sequence, rles: Sequence[str]) -> None:
 
 
 def predict(model, ids: Sequence, images, run_params: dict, *, visualize: bool = False, save_masks: bool = False,
-            tta: Sequence[str] = ("identity",), chunk: int = 128, device=None) -> str:
+            tta: Sequence[str] = ("identity",), chunk: int = 128, device=None, mesh=None) -> str:
     """Predict all test masks and write the RLE submission CSV.
 
     ids: the tile ids, in the order of ``images``; images: the test tiles,
     reshaped to (N, img_height, img_width, img_chan). run_params carries the
     geometry, ``mask_threshold``, ``out_dir`` and ``subm_file``; ``tta``
     the views; ``save_masks`` also writes each binarized mask as
-    ``out_dir/masks/<id>.png``. Returns the CSV's path."""
+    ``out_dir/masks/<id>.png``. Returns the CSV's path. ``mesh``: each chunk
+    split over the ranks; rank 0 writes the files while the others wait."""
     if visualize:
         raise NotImplementedError("predict(visualize=True) needs viz/plots.py and matplotlib, which the port "
                                   "does not have yet (ROADMAP.md, queue A item 7)")
@@ -108,25 +111,29 @@ def predict(model, ids: Sequence, images, run_params: dict, *, visualize: bool =
     )
     if len(ids) != X.shape[0]:
         raise ValueError(f"{len(ids)} ids for {X.shape[0]} images")
-    preds = predict_masks_tta(model, X, transforms=tta, chunk=chunk, device=device)
+    preds = predict_masks_tta(model, X, transforms=tta, chunk=chunk, device=device, mesh=mesh)
     masks = binarize(preds, run_params["mask_threshold"])
-    if save_masks:
-        mask_dir = os.path.join(run_params["out_dir"], "masks")
-        os.makedirs(mask_dir, exist_ok=True)
-        for idx, m in zip(ids, masks):
-            save_mask_png(os.path.join(mask_dir, f"{idx}.png"), m.astype(bool))
     subm_file = os.path.join(run_params["out_dir"], run_params["subm_file"])
-    write_submission(subm_file, ids, encode_batch(masks))
+    if mesh is None or dist.get_rank() == 0:
+        if save_masks:
+            mask_dir = os.path.join(run_params["out_dir"], "masks")
+            os.makedirs(mask_dir, exist_ok=True)
+            for idx, m in zip(ids, masks):
+                save_mask_png(os.path.join(mask_dir, f"{idx}.png"), m.astype(bool))
+        write_submission(subm_file, ids, encode_batch(masks))
+    if mesh is not None:
+        dist.barrier()
     return subm_file
 
 
 def start_inference(model, ids: Sequence, images, X_valid, y_valid, out_dir: str, img_width: int,
                     img_height: int, img_chan: int, subm_file: str = "submission.csv", *, visualize: bool = False,
                     save_masks: bool = False, tta: Sequence[str] = ("identity",), chunk: int = 128, device=None,
-                    debug: bool = False) -> str:
+                    debug: bool = False, mesh=None) -> str:
     """Best-threshold search on validation, then the test prediction.
     X_valid arrives NCHW (the reference data contract) and is transposed
-    to NHWC here."""
+    to NHWC here. ``mesh`` shards the test prediction, as in JAX (the search
+    runs whole on every rank)."""
     xv = np.transpose(np.asarray(X_valid, dtype=np.float32), (0, 2, 3, 1))
     threshold_best, iou_best = score_model_best_iou(model, xv, np.asarray(y_valid), chunk=chunk,
                                                     device=device, debug=debug)
@@ -141,4 +148,4 @@ def start_inference(model, ids: Sequence, images, X_valid, y_valid, out_dir: str
     }
     os.makedirs(out_dir, exist_ok=True)
     return predict(model, ids, images, run_params, visualize=visualize, save_masks=save_masks, tta=tta, chunk=chunk,
-                   device=device)
+                   device=device, mesh=mesh)

@@ -16,6 +16,14 @@ scheduler, the trace, the sample-step counter and the states of the
 dropout, shuffle and augmentation generators. Loading writes into the
 existing tensors, so a CUDA graph captured afterwards sees the resumed
 values at the addresses the TrainState already has.
+
+Under data parallel (a ``mesh``) the file is still one file: the
+parameters and Adam's state are replicated, so rank 0's are written; the
+trace lanes are gathered in rank order (D*L lanes) and every rank's
+generator states beside them (``world_size`` says how many). Rank 0
+writes while the others wait at a barrier; loading gives each rank its
+lane block and its own generators back, and refuses a file of another
+world size (or of a single-device run).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import pickle
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 H5_OPTS = dict(compression="gzip", shuffle=True, fletcher32=True)
 STATE_FORMAT = 1
@@ -69,43 +78,69 @@ def save_reference_artifacts(prefix: str, model: torch.nn.Module, run_params: di
     torch.save(sd, prefix + "_net.pth")
 
 
-def save_train_state(path: str, state, generators: dict) -> None:
+def save_train_state(path: str, state, generators: dict, mesh=None) -> None:
     """Everything an exact resume needs, in one file. ``generators`` maps a
     name (e.g. "shuffle", "augment") to a torch.Generator or None; the
-    dropout generator is the TrainState's own."""
+    dropout generator is the TrainState's own. Under a ``mesh`` every rank
+    calls this (it gathers) and rank 0 writes."""
     gens = dict(generators, dropout=state.generator)
-    payload = {
-        "format": STATE_FORMAT,
-        "model": state_dict_to_host(state.model),
-        "optimizer": state.optimizer.state_dict()["state"],
-        "scheduler_steps": state.scheduler.last_epoch,
-        "hebb": state.hebb.detach().cpu(),
-        "step": state.step,
-        "generators": {k: None if g is None else g.get_state() for k, g in gens.items()},
-    }
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    states = {k: None if g is None else g.get_state() for k, g in gens.items()}
+    hebb = state.hebb.detach()
+    if mesh is not None:
+        lanes = [torch.empty_like(hebb) for _ in range(mesh.size())]
+        dist.all_gather(lanes, hebb.contiguous())
+        hebb = torch.cat(lanes)
+        per_rank = [None] * mesh.size()
+        dist.all_gather_object(per_rank, states)  # CPU byte tensors, pickled through the rank's device
+        states = {k: [s[k] for s in per_rank] for k in states}
+    if mesh is None or dist.get_rank() == 0:
+        payload = {
+            "format": STATE_FORMAT,
+            "model": state_dict_to_host(state.model),
+            "optimizer": state.optimizer.state_dict()["state"],
+            "scheduler_steps": state.scheduler.last_epoch,
+            "hebb": hebb.cpu(),
+            "step": state.step,
+            "generators": states,
+            "world_size": None if mesh is None else mesh.size(),
+        }
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    if mesh is not None:
+        dist.barrier()
 
 
-def load_train_state(path: str, state, generators: dict) -> None:
+def load_train_state(path: str, state, generators: dict, mesh=None) -> None:
     """Restore a file of :func:`save_train_state` into ``state`` and the
     named generators, in place. Parameters and the trace are copied into
     their tensors; the optimizer's moments are loaded before any CUDA graph
     of the step is captured (they are new tensors); the learning rate is set
-    from the scheduler's step count."""
+    from the scheduler's step count. Under a ``mesh`` each rank takes its
+    lanes and its generators."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if payload.get("format") != STATE_FORMAT:
         raise ValueError(f"{path}: not a resume-state file of this package (format {payload.get('format')!r})")
+    world = None if mesh is None else mesh.size()
+    saved = payload.get("world_size")
+    if saved != world:
+        runs = {None: "a single-device run"}
+        raise ValueError(f"{path} was saved by {runs.get(saved, f'{saved} ranks')}; this is "
+                         f"{runs.get(world, f'{world} ranks')}")
+    hebb, gen_states = payload["hebb"], payload["generators"]
+    if mesh is not None:
+        rank, lanes = dist.get_rank(), state.hebb.shape[0]
+        hebb = hebb[rank * lanes:(rank + 1) * lanes]
+        gen_states = {k: v[rank] for k, v in gen_states.items()}
     state.model.load_state_dict(payload["model"], strict=True)
     current = state.optimizer.state_dict()
     state.optimizer.load_state_dict({"state": payload["optimizer"], "param_groups": current["param_groups"]})
     state.scheduler.restore(payload["scheduler_steps"])
     with torch.no_grad():
-        state.hebb.copy_(payload["hebb"])
+        state.hebb.copy_(hebb)
     state.step = int(payload["step"])
     gens = dict(generators, dropout=state.generator)
-    for name, saved in payload["generators"].items():
+    for name, saved in gen_states.items():
         if (gens.get(name) is None) != (saved is None):
             raise ValueError(f"{path}: the {name} generator was {'absent' if saved is None else 'present'} "
                              "when saved; the resuming run must have the same")

@@ -26,6 +26,17 @@ each draw from their own ``torch.Generator`` on the device, seeded from
 ``cfg.seed`` (+0, +1, +2): their streams are not the JAX package's, so a
 run with any of them on follows its own trajectory, reproducible from the
 seed, and resumes bit for bit from the resume-state file.
+
+Data parallel (``cfg.devices > 1``, or a mesh handed to
+:func:`start_train`): one process per device under torchrun, each rank
+holding ``cfg.lanes`` lanes of the JAX (S, D*L) layout (parallel.dp). Each
+rank stages only its slice of the stream (parallel.multihost); the dropout
+and shuffle generators are seeded from (seed, rank), so each rank draws its
+own masks and permutes its own block, and the augmentation generator alike
+on every rank, which draws for the global stream. The losses and the
+validation are the same on every rank; rank 0 alone prints, writes the
+artifacts and the resume-state file (the others wait at a barrier), and
+the resume-state file keeps every rank's trace lanes and generators.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.config import TrainConfig
@@ -44,6 +56,9 @@ from plastic_unet_tpu_torch.eval.evaluate import eval_net
 from plastic_unet_tpu_torch.models.unet_classic import UNetP
 from plastic_unet_tpu_torch.models.unet_res import UNetPRes
 from plastic_unet_tpu_torch.ops.augment import draw_augment_choices
+from plastic_unet_tpu_torch.parallel import dp
+from plastic_unet_tpu_torch.parallel.mesh import make_mesh, rank_device
+from plastic_unet_tpu_torch.parallel.multihost import process_local_slice, stage_global_stream
 from plastic_unet_tpu_torch.train import loop
 from plastic_unet_tpu_torch.train.checkpoint import load_train_state, save_reference_artifacts, save_train_state
 from plastic_unet_tpu_torch.train.loop import TrainState, create_train_state, reshape_stream
@@ -53,6 +68,7 @@ RESUME_STATE = "train_state.pt"  # the port's counterpart of the JAX driver's or
 
 
 RNG_IMPLS = ("threefry", "rbg", "unsafe_rbg")  # the JAX CLI's choices; each is one more stream here
+RANK_STRIDE = 0x9E3779B9  # between the ranks' seeds; odd, so the low 32 bits (all a CPU generator reads) differ
 
 
 def build_model(cfg: TrainConfig) -> torch.nn.Module:
@@ -72,8 +88,6 @@ def build_model(cfg: TrainConfig) -> torch.nn.Module:
     if cfg.arch not in ("unet_res", "unet"):
         raise ValueError(f"unknown arch {cfg.arch!r} (use 'unet_res' or 'unet')")
     bad = []
-    if cfg.devices > 1:
-        bad.append(f"devices={cfg.devices} (data parallel: queue A item A6)")
     if cfg.compute_dtype != "float32" and cfg.arch == "unet_res":
         bad.append(f"compute_dtype={cfg.compute_dtype!r} (reduced precision: queue A item A4d)")
     if cfg.batch_norm:
@@ -158,22 +172,51 @@ def _nchw_to_device(x, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(x, np.float32), (0, 2, 3, 1)))).to(dev)
 
 
+def make_generators(cfg: TrainConfig, dev, rank: int = 0) -> tuple:
+    """(dropout, {"shuffle", "augment"}) generators on ``dev``, seeded from
+    ``cfg.seed`` +0, +1, +2. Under data parallel the dropout and shuffle
+    streams are the rank's own, seeded from (seed, rank) as JAX folds the
+    device index into its keys (rank 0 draws as the single-device run), and
+    the augmentation stream is alike on every rank."""
+    dropout, shuffle = (torch.Generator(device=dev).manual_seed(cfg.seed + i + rank * RANK_STRIDE) for i in range(2))
+    return dropout, {"shuffle": shuffle, "augment": torch.Generator(device=dev).manual_seed(cfg.seed + 2)}
+
+
+def _stage_stream(x_train, y_train, cfg: TrainConfig, dev, mesh):
+    """The (S, L, H, W, C) and (S, L, H, W) stream on ``dev``: the whole
+    stream in lanes, or under a mesh this rank's block, staged from its own
+    slice of a stream cut to a multiple of D*L (so every rank has the same
+    S; the JAX layout drops that remainder too)."""
+    if mesh is None:
+        X = _nchw_to_device(x_train, dev)
+        Y = torch.from_numpy(np.asarray(y_train, np.float32).reshape(-1, cfg.im_height, cfg.im_width)).to(dev)
+        return reshape_stream(X, Y, cfg.lanes)
+    n = x_train.shape[0] - x_train.shape[0] % (mesh.size() * cfg.lanes)
+    sl = process_local_slice(n)
+    x = np.transpose(np.asarray(x_train[sl], np.float32), (0, 2, 3, 1))
+    y = np.asarray(y_train[sl], np.float32).reshape(-1, cfg.im_height, cfg.im_width)
+    return stage_global_stream(x, y, mesh, lanes_per_device=cfg.lanes)
+
+
 def train(state: TrainState, x_train, x_val, y_train, y_val, cfg: TrainConfig, stop_time: float | None = None,
-          generators: dict | None = None) -> TrainResult:
+          generators: dict | None = None, mesh=None) -> TrainResult:
     """Run the epoch loop. Arrays arrive in the reference's NCHW contract and
     are staged to the device NHWC once. ``generators`` holds the "shuffle"
-    and "augment" generators (needed when those are on)."""
-    print("Train samples shape:", x_train.shape)
-    print("Train labels shape:", y_train.shape)
-    print("Validation samples shape:", x_val.shape)
-    print("Validation labels shape:", y_val.shape)
-    print(cfg)
+    and "augment" generators (needed when those are on). ``mesh``: the
+    data-parallel route (parallel.mesh.make_mesh), ``state`` this rank's."""
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    say("Train samples shape:", x_train.shape)
+    say("Train labels shape:", y_train.shape)
+    say("Validation samples shape:", x_val.shape)
+    say("Validation labels shape:", y_val.shape)
+    say(cfg)
     generators = generators or {}
     model, dev = state.model, state.hebb.device
 
     stop_time = cfg.stop_time if stop_time is None else stop_time
     if stop_time > 0:
-        print(
+        say(
             "Training started at: [%s] and set to stop at: [%s]"
             % (
                 datetime.fromtimestamp(time.time()).strftime("%B %d, %Y %H:%M:%S"),
@@ -181,21 +224,26 @@ def train(state: TrainState, x_train, x_val, y_train, y_val, cfg: TrainConfig, s
             )
         )
 
-    X = _nchw_to_device(x_train, dev)
-    Y = torch.from_numpy(np.asarray(y_train, np.float32).reshape(y_train.shape[0], cfg.im_height, cfg.im_width)).to(dev)
-    Xl, Yl = reshape_stream(X, Y, cfg.lanes)
-    del X, Y
+    Xl, Yl = _stage_stream(x_train, y_train, cfg, dev, mesh)
     samples_count = Xl.shape[0]  # one recorded loss per step
-    n_stream = Xl.shape[0] * Xl.shape[1]
+    n_global = Xl.shape[0] * Xl.shape[1] * (1 if mesh is None else mesh.size())  # the augmentation draws for all
     xv = _nchw_to_device(x_val, dev)
     yv = torch.from_numpy(np.asarray(y_val, np.float32)).to(dev)
 
-    run_epochs = loop.make_multi_epoch_fn(loss_space=cfg.loss_space, shuffle=cfg.shuffle, augment=cfg.augment)
+    if mesh is None:
+        run_epochs = loop.make_multi_epoch_fn(loss_space=cfg.loss_space, shuffle=cfg.shuffle, augment=cfg.augment)
+    else:
+        run_epochs = dp.make_dp_multi_epoch_fn(mesh, loss_space=cfg.loss_space, trace_mode=cfg.trace_mode,
+                                               shuffle=cfg.shuffle, augment=cfg.augment)
     run_params = cfg.as_run_params(stop_time, device=dev.type)
 
-    def artifacts(prefix: str) -> None:
-        save_reference_artifacts(os.path.join(cfg.out_dir, prefix), model, run_params, all_losses,
-                                 val_train_losses, val_test_losses, val_accuracies)
+    def artifacts(prefix: str, wait: bool = True) -> None:
+        """Rank 0 writes; under a mesh the others wait for it (``wait``)."""
+        if lead:
+            save_reference_artifacts(os.path.join(cfg.out_dir, prefix), model, run_params, all_losses,
+                                     val_train_losses, val_test_losses, val_accuracies)
+        if mesh is not None and wait:
+            dist.barrier()
 
     all_losses: list[float] = []
     val_train_losses: list[float] = []
@@ -213,17 +261,18 @@ def train(state: TrainState, x_train, x_val, y_train, y_val, cfg: TrainConfig, s
         while epoch < cfg.epochs:
             k_epochs = _chunk_epochs(epoch) if use_chunks else 1
             if cfg.debug:
-                print("Starting epoch %d/%d." % (epoch + 1, cfg.epochs))
+                say("Starting epoch %d/%d." % (epoch + 1, cfg.epochs))
             epoch_start_time = time.time()
 
             # the draws of the K epochs, in the one-epoch path's order (each stream its own generator)
             perms = choices = None
             if cfg.shuffle:
-                perms = torch.stack([torch.randperm(n_stream, generator=generators["shuffle"], device=dev)
-                                     for _ in range(k_epochs)])
+                perms = dp.shard_perms(Xl, generators["shuffle"], k_epochs)
             if cfg.augment:
-                choices = torch.stack([draw_augment_choices(n_stream, generators["augment"])
+                choices = torch.stack([draw_augment_choices(n_global, generators["augment"])
                                        for _ in range(k_epochs)])
+                if mesh is not None:
+                    choices = dp.shard_choices(choices, cfg.lanes, mesh)
             state, losses = run_epochs(state, Xl, Yl, perms, choices, epochs=k_epochs)
             losses_rows = losses.cpu().numpy().astype(np.float64)  # the dispatch's one transfer
 
@@ -252,10 +301,15 @@ def train(state: TrainState, x_train, x_val, y_train, y_val, cfg: TrainConfig, s
             epoch += k_epochs - 1  # the bookkeeping below sees the chunk's last epoch
             next_k = _chunk_epochs(epoch + 1) if (use_chunks and epoch + 1 < cfg.epochs) else 1
             next_epoch_finish_time = epoch_time * next_k + time.time()
-            terminate_training = (stop_time > 0 and next_epoch_finish_time >= stop_time) or (epoch + 1) == cfg.epochs
+            timed_out = stop_time > 0 and next_epoch_finish_time >= stop_time
+            if mesh is not None and stop_time > 0:  # rank 0's clock decides for all: no rank may stop alone
+                flag = torch.tensor([float(timed_out)], device=dev)
+                dist.broadcast(flag, src=0)
+                timed_out = bool(flag.item())
+            terminate_training = timed_out or (epoch + 1) == cfg.epochs
 
             if cfg.debug:
-                print(
+                say(
                     "Epoch finished! Loss: %f, time spent: %d, terminate due to time limits: %s"
                     % (epoch_loss, epoch_time, terminate_training)
                 )
@@ -267,18 +321,18 @@ def train(state: TrainState, x_train, x_val, y_train, y_val, cfg: TrainConfig, s
                 val_test_losses.append(val_loss)
                 val_accuracies.append(val_acc)
                 if cfg.debug:
-                    print("Validation accuracy: %f, loss: %f" % (val_acc, val_loss))
+                    say("Validation accuracy: %f, loss: %f" % (val_acc, val_loss))
                     if cfg.plastic:
-                        print("Eta:", model.eta.detach().cpu().numpy())
+                        say("Eta:", model.eta.detach().cpu().numpy())
                     sys.stdout.flush()
 
             if (epoch + 1) % cfg.save_every == 0 or terminate_training:
                 if cfg.debug:
-                    print("Saving checkpoint files for epoch:", epoch)
+                    say("Saving checkpoint files for epoch:", epoch)
                 epochs_since_last_cp = max(epoch - last_save_epoch, 1)
                 last_save_epoch = epoch
                 if cfg.debug:
-                    print(
+                    say(
                         "Average loss over the last %d epochs: %f"
                         % (epochs_since_last_cp, loss_between_saves / epochs_since_last_cp)
                     )
@@ -289,28 +343,28 @@ def train(state: TrainState, x_train, x_val, y_train, y_val, cfg: TrainConfig, s
                     else:
                         loss_last_100 = float(np.mean(all_losses[-samples_count * 100 :]))
                     if cfg.debug:
-                        print("Average loss over the last 100 epochs: ", loss_last_100)
+                        say("Average loss over the last 100 epochs: ", loss_last_100)
                 loss_between_saves = 0.0
 
                 prefix = "train"
                 if (epoch + 1) % cfg.rollout == 0 and not terminate_training:
                     prefix = prefix + "_" + str(epoch + 1)
                 artifacts(prefix)
-                save_train_state(os.path.join(cfg.out_dir, RESUME_STATE), state, generators)
+                save_train_state(os.path.join(cfg.out_dir, RESUME_STATE), state, generators, mesh=mesh)
 
             if terminate_training:
-                if stop_time > 0 and next_epoch_finish_time >= stop_time:
-                    print("Training terminated due to the time limits!")
-                    print("Current epoch %d, train loss: %s" % (epoch, epoch_loss))
-                    print(
+                if timed_out:
+                    say("Training terminated due to the time limits!")
+                    say("Current epoch %d, train loss: %s" % (epoch, epoch_loss))
+                    say(
                         "Stop time limit: %d, estimated time of next epoch end: %d"
                         % (stop_time, next_epoch_finish_time)
                     )
                 break
             epoch += 1
     except KeyboardInterrupt:
-        artifacts("INTERRUPTED")
-        print("Saved interrupt")
+        artifacts("INTERRUPTED", wait=False)  # another rank may not have been interrupted
+        say("Saved interrupt")
         raise
 
     return TrainResult(state, all_losses, val_train_losses, val_test_losses, val_accuracies, model)
@@ -342,26 +396,42 @@ class _sigterm_as_interrupt:
         return False
 
 
-def start_train(x_train, x_valid, y_train, y_valid, cfg: TrainConfig, device=None) -> TrainResult:
+def start_train(x_train, x_valid, y_train, y_valid, cfg: TrainConfig, device=None, mesh=None) -> TrainResult:
     """Create (or resume) the model and run training (reference start_train,
     train.py:213-314). ``device=None`` means CUDA and raises without it;
-    pass ``device="cpu"`` to run the plain versions on the CPU."""
+    pass ``device="cpu"`` to run the plain versions on the CPU.
+
+    ``cfg.devices > 1`` takes the data-parallel route, on a mesh of that
+    many ranks (parallel.mesh.make_mesh: raises, naming torchrun, without a
+    process group of that size and of the device's backend); a ``mesh``
+    handed in takes it at its size, which must be ``cfg.devices``. Under a
+    mesh each rank runs this on its own device (a CUDA device without an
+    index is the rank's current one)."""
     dev = resolve_device(device)
+    rank = 0
+    if mesh is None and cfg.devices > 1:
+        mesh = make_mesh(cfg.devices, device=dev)
+    if mesh is not None:
+        if mesh.size() != cfg.devices:
+            raise ValueError(f"the mesh has {mesh.size()} ranks and cfg.devices is {cfg.devices}")
+        dev, rank = rank_device(dev), dist.get_rank()
     os.makedirs(cfg.out_dir, exist_ok=True)
 
     with matmul_precision(cfg.matmul_precision):
         model = build_model(cfg)
-        dropout, shuffle, augment = (torch.Generator(device=dev).manual_seed(cfg.seed + i) for i in range(3))
-        generators = {"shuffle": shuffle, "augment": augment}
+        dropout, generators = make_generators(cfg, dev, rank)
         state = create_train_state(model, cfg.lr, cfg.gamma, cfg.steplr, lanes=cfg.lanes, generator=dropout,
                                    device=dev)
+        if mesh is not None:
+            dp.dp_state_sharding(state, mesh)
+        say = print if rank == 0 else (lambda *a, **k: None)
         if cfg.resume_orbax:
-            load_train_state(cfg.resume_orbax, state, generators)
-            print("TrainState restored from %s (step %d)" % (cfg.resume_orbax, state.step))
+            load_train_state(cfg.resume_orbax, state, generators, mesh=mesh)
+            say("TrainState restored from %s (step %d)" % (cfg.resume_orbax, state.step))
         elif cfg.load:
             load_reference_weights(model, cfg.model_path, cfg)
-            print("Model loaded from %s" % cfg.model_path)
+            say("Model loaded from %s" % cfg.model_path)
 
         with _sigterm_as_interrupt():
             return train(state, x_train, x_valid, y_train, y_valid, cfg, stop_time=cfg.stop_time,
-                         generators=generators)
+                         generators=generators, mesh=mesh)

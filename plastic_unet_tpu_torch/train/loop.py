@@ -73,31 +73,38 @@ def _loss_fn(loss_space: str):
     return lambda out, mask: bce_logits(out.activ, mask)
 
 
-def _step_body(state: TrainState, loss_of, img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _step_body(state: TrainState, loss_of, img: torch.Tensor, mask: torch.Tensor, reducer=None) -> torch.Tensor:
     """Forward with the detached trace, loss, backward, one Adam update and
     the trace carried on, all on the device; returns the detached loss. The
-    same body runs eagerly and under graph capture."""
+    same body runs eagerly and under graph capture. A data-parallel
+    ``reducer`` (parallel.dp.MeshReducer) averages the gradients and the
+    loss over the ranks before the update and gives the new trace its
+    coherence mode before it is kept."""
     state.optimizer.zero_grad(set_to_none=True)
     out = state.model(img, state.hebb.detach(), generator=state.generator)
     loss = loss_of(out, mask)
     loss.backward()
+    if reducer is not None:
+        loss = reducer.gradients(state.model, loss)
     state.optimizer.step()
-    state.hebb.copy_(out.hebb.detach())  # after the backward: the head keeps the old trace until then
+    hebb = out.hebb.detach()  # kept after the backward: the head keeps the old trace until then
+    state.hebb.copy_(hebb if reducer is None else reducer.trace(hebb))
     return loss.detach()
 
 
-def make_train_step(*, loss_space: str = "logits") -> Callable:
+def make_train_step(*, loss_space: str = "logits", reducer=None) -> Callable:
     """Build the eager per-step function: ``(state, (img, mask)) -> (state, loss)``.
 
     img: (B, H, W, C), mask: (B, H, W) or (B, H, W, 1), on the model's device.
     loss_space: 'logits' (stable, default) or 'probs' (reference-exact torch
-    BCELoss clamp semantics). The loss is a 0-d tensor on the device."""
+    BCELoss clamp semantics). The loss is a 0-d tensor on the device.
+    reducer: the data-parallel collectives of the step (see _step_body)."""
     loss_of = _loss_fn(loss_space)
 
     def train_step(state: TrainState, batch):
         img, mask = batch
         with training_numerics():
-            loss = _step_body(state, loss_of, img, mask)
+            loss = _step_body(state, loss_of, img, mask, reducer)
         state.scheduler.step()
         state.step += 1
         return state, loss
@@ -117,9 +124,15 @@ class GraphTrainStep:
     moments; the model, the optimizer state, the trace and the dropout
     generator are then put back exactly as they were, so the captured
     trajectory is the eager one. The learning rate is a device tensor that
-    the scheduler writes between replays."""
+    the scheduler writes between replays.
 
-    def __init__(self, state: TrainState, batch_shape, mask_shape, *, loss_space: str = "logits"):
+    With a data-parallel ``reducer`` its NCCL all-reduces are captured too
+    (they are issued on NCCL's stream, which joins the capture through
+    events): every rank runs the warm-up steps, the restore and the capture
+    in lockstep, and each replay runs the collectives again. The warm-up's
+    first collective creates the communicator, which capture cannot."""
+
+    def __init__(self, state: TrainState, batch_shape, mask_shape, *, loss_space: str = "logits", reducer=None):
         dev = state.hebb.device
         if dev.type != "cuda":
             raise RuntimeError("GraphTrainStep: a CUDA graph needs the model on a CUDA device")
@@ -137,11 +150,11 @@ class GraphTrainStep:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), training_numerics():
             for _ in range(2):
-                _step_body(state, loss_of, self.img, self.mask)
+                _step_body(state, loss_of, self.img, self.mask, reducer)
         torch.cuda.current_stream(dev).wait_stream(side)
         self._restore(kept)
         with training_numerics(), torch.cuda.graph(self.graph):
-            self.loss = _step_body(state, loss_of, self.img, self.mask)
+            self.loss = _step_body(state, loss_of, self.img, self.mask, reducer)
 
     def _tensors(self):
         st = self.state
@@ -184,7 +197,7 @@ class GraphTrainStep:
         return state, self.loss
 
 
-def make_epoch_fn(*, loss_space: str = "logits", graph: bool | None = None) -> Callable:
+def make_epoch_fn(*, loss_space: str = "logits", graph: bool | None = None, reducer=None) -> Callable:
     """Build the whole-epoch function.
 
     Signature: ``(state, X, Y) -> (state, losses)``
@@ -197,8 +210,10 @@ def make_epoch_fn(*, loss_space: str = "logits", graph: bool | None = None) -> C
     graph: replay a CUDA graph of the step (captured at the first call, per
     state and batch shape) instead of issuing it eagerly. ``None`` means a
     graph for a model on a CUDA device and the eager step on the CPU; asking
-    for a graph on the CPU raises."""
-    eager_step = make_train_step(loss_space=loss_space)
+    for a graph on the CPU raises. reducer: the data-parallel collectives of
+    the step (parallel.dp.make_dp_epoch_fn), in the eager step and the
+    graph alike."""
+    eager_step = make_train_step(loss_space=loss_space, reducer=reducer)
     graphs: dict = {}
 
     def epoch(state: TrainState, X: torch.Tensor, Y: torch.Tensor):
@@ -209,7 +224,7 @@ def make_epoch_fn(*, loss_space: str = "logits", graph: bool | None = None) -> C
         if dev.type == "cuda" if graph is None else graph:
             key = (id(state), tuple(X.shape[1:]), tuple(Y.shape[1:]))  # the graph keeps its state alive, so the id holds
             if key not in graphs:
-                graphs[key] = GraphTrainStep(state, X.shape[1:], Y.shape[1:], loss_space=loss_space)
+                graphs[key] = GraphTrainStep(state, X.shape[1:], Y.shape[1:], loss_space=loss_space, reducer=reducer)
             step_fn = graphs[key]
         losses = torch.empty((X.shape[0],), dtype=torch.float32, device=dev)
         for s in range(X.shape[0]):
@@ -220,7 +235,8 @@ def make_epoch_fn(*, loss_space: str = "logits", graph: bool | None = None) -> C
     return epoch
 
 
-def make_multi_epoch_fn(*, loss_space: str = "logits", shuffle: bool = False, augment: bool = False) -> Callable:
+def make_multi_epoch_fn(*, loss_space: str = "logits", shuffle: bool = False, augment: bool = False,
+                        reducer=None) -> Callable:
     """Build the K-epoch function (the counterpart of the JAX package's
     one-dispatch scan over epochs).
 
@@ -233,10 +249,11 @@ def make_multi_epoch_fn(*, loss_space: str = "logits", shuffle: bool = False, au
       them in the order of the one-epoch path. ``epochs`` is K.
     Each epoch re-zeroes the trace in place, permutes the flattened stream,
     augments it and runs the per-sample loop of :func:`make_epoch_fn` (the
-    CUDA graph on the card). The (K, S) losses stay on the device."""
+    CUDA graph on the card). The (K, S) losses stay on the device.
+    reducer: as in :func:`make_epoch_fn` (parallel.dp.make_dp_multi_epoch_fn)."""
     from plastic_unet_tpu_torch.ops.augment import augment_stream
 
-    epoch_fn = make_epoch_fn(loss_space=loss_space)
+    epoch_fn = make_epoch_fn(loss_space=loss_space, reducer=reducer)
 
     def run(state: TrainState, X: torch.Tensor, Y: torch.Tensor, perms=None, choices=None, *, epochs: int):
         k, n = epochs, X.shape[0] * X.shape[1]

@@ -111,9 +111,10 @@ def test_cli_default_device_is_cuda(tmp_path):
 
 
 # the ids of the cases as they were when the options of test_cli_train_ported_flags_run raised too;
-# --arch unet is ported and raises UNetP's geometry error on the CLI's 101-px tiles, as the JAX CLI does
+# --arch unet is ported and raises UNetP's geometry error on the CLI's 101-px tiles, as the JAX CLI does;
+# --devices 2 is ported and, outside torchrun's environment, raises naming it
 @pytest.mark.parametrize("flags,match", [pytest.param(["--arch", "unet"], "divisible by 16", id="flags1"),
-                                         pytest.param(["--devices", "2"], "does not have", id="flags2"),
+                                         pytest.param(["--devices", "2"], "torchrun", id="flags2"),
                                          pytest.param(["--compute-dtype", "bfloat16"], "does not have", id="flags3")])
 def test_cli_train_unported_flags_raise(tmp_path, flags, match):
     with pytest.raises(ValueError, match=match):
@@ -137,8 +138,8 @@ def test_cli_train_ported_flags_run(tmp_path, flags, attr, value):
 def test_cli_infer_unported_flags_raise(trained, tgs_dir, tmp_path):
     pth = str(trained[0] / "train_net.pth")
     base = ["-m", pth, "-i", tgs_dir, "-o", str(tmp_path), "--neurons", "2", "--device", "cpu"]
-    for flags in (["--visualize"], ["--devices", "2"]):
-        with pytest.raises(ValueError, match="does not have"):
+    for flags, match in ((["--visualize"], "does not have"), (["--devices", "2"], "torchrun")):
+        with pytest.raises(ValueError, match=match):  # --devices is ported: it needs torchrun's ranks
             tinfer.main(base + flags)
     with pytest.raises(ValueError, match="unknown TTA"):
         tinfer.main(base + ["--tta", "flip"])
@@ -212,12 +213,15 @@ def test_cli_export_roundtrips(tmp_path):
     np.testing.assert_allclose(got, want, rtol=0, atol=1.2e-7)
 
 
-@pytest.mark.parametrize("flags,item", [(["--compute-dtype", "bfloat16"], "A4d"), (["--data-devices", "2"], "A6"),
+@pytest.mark.parametrize("flags,item", [(["--compute-dtype", "bfloat16"], "A4d"),
+                                        (["--data-devices", "3"], "divisible by data_devices"),
                                         (["--arch", "unet", "--compute-dtype", "bfloat16"], "A4d")],
                          ids=["bfloat16", "data-devices", "unet"])
 def test_cli_export_unported_flags_raise(tmp_path, flags, item):
     """What the port does not export raises before any work and names its
-    ROADMAP.md queue item (UNetP exports, in fp32 only)."""
+    ROADMAP.md queue item (UNetP exports, in fp32 only); sharded export is
+    ported, and a chunk (128) that the data devices cannot share evenly
+    raises before any work too."""
     from plastic_unet_tpu_torch.cli import export_model
 
     with pytest.raises(ValueError, match=item):

@@ -220,13 +220,20 @@ def test_config_fields_and_run_params_match_jax():
 
 
 # the ids of the cases as they were when every option here raised; option0 was arch="unet" alone
-# until UNetP was ported, and is now UNetP with a trunk option it refuses, as the JAX driver does
+# until UNetP was ported, and is now UNetP with a trunk option it refuses, as the JAX driver does;
+# option1 (devices=2) is ported, and start_train raises, naming torchrun, without a process group of 2
 @pytest.mark.parametrize("option", [pytest.param(dict(arch="unet", remat_trunk=True), id="option0"),
                                     pytest.param(dict(devices=2), id="option1"),
                                     pytest.param(dict(compute_dtype="bfloat16"), id="option6"),
                                     pytest.param(dict(batch_norm=True), id="option7")])
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, tmp_path):
     name = list(option)[-1]
+    if name == "devices":
+        x_train, x_valid, y_train, y_valid = synthetic_split(4, 2, size=SIZE, seed=2)
+        cfg = TrainConfig(out_dir=str(tmp_path), im_width=SIZE, im_height=SIZE, neurons=2, **option)
+        with pytest.raises(ValueError, match="torchrun"):
+            driver.start_train(x_train, x_valid, y_train, y_valid, cfg, device="cpu")
+        return
     with pytest.raises(ValueError, match=name):
         driver.build_model(TrainConfig(**option))
 
@@ -258,8 +265,9 @@ def test_unknown_rng_impl_raises():
 def test_unported_option_messages_give_reasons():
     with pytest.raises(ValueError) as e:
         driver.build_model(TrainConfig(devices=2, compute_dtype="bfloat16", batch_norm=True))
-    for reason in ("A6", "A4d", "batch_stats"):
+    for reason in ("A4d", "batch_stats"):
         assert reason in str(e.value)
+    assert "devices" not in str(e.value)  # data parallel is ported (start_train's route)
 
 
 def test_accepted_options_and_no_plastic():
