@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (no JAX).
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
-    python3 chip_smoke.py --profile   # only: the B=1 training step's device time by kernel name
+    python3 chip_smoke.py --profile [bfloat16]   # only: the B=1 training step's device time by kernel name
 
 Phases, each printing its lines; any failed check raises and the exit code
 is non-zero:
@@ -210,6 +210,21 @@ is non-zero:
      NCCL; predict_masks and tta4 with the mesh == without it on 512 tiles;
      the graph step with and without the all-reduce at lanes 1 and 128, in
      turns, and their ratio.
+ 17. compute_dtype bfloat16 (UNetPRes neurons=16, nbf=101, phase 3's seeded
+     weights; the trunk on cuDNN's bf16 convs, the head's kernel in fp32):
+     serving 512 tiles at chunk 128 within 2e-2 of the card's fp32 forward
+     and of the CPU port in bf16, two runs equal, one head launch a chunk
+     and no trunk kernel, tiles/s against fp32 in turns; the bf16 artifact
+     equal to the live forward; tta8 folded against one pass a view
+     (reported); int8 under bf16 within 0.05 of fp32; 8 B=1 training steps
+     (hebb, dropout 0) eager and as a CUDA graph, equal bit for bit, losses
+     within 3e-2 relative of the CPU port in bf16, parameters fp32; the
+     graph step's ms and a lanes=128 step's samples/s against fp32, in
+     turns; the precision policy on an fp32 B=1 graph step and serving
+     chunk: "perf" and "parity" each repeat their bits, "perf" differs
+     (TF32 engaged) within a quarter of the bf16 bounds, and both times.
+     The CLIs default to "perf"; phases 11, 12 and 16 pass "parity", the
+     policy their numbers are set against.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
 belong to the entry's "shape"; "launches" counts the serving request of
@@ -248,7 +263,8 @@ the plastic_head entry its times at n=128 (keys ending in _n128 for B=128
 and _n128_b1 for B=1: ms, plain_ms, bmm_ms, bound_ms, bound_by,
 max_abs_err) and classic_tiles_s, UNetP's serving tiles/s by variant.
 Phase 16 adds to every entry launches_dp_step (one eager data-parallel step
-at lanes=128, world size 1). The residual_tail_backward entry's
+at lanes=128, world size 1), phase 17 launches_bf16_chunk and
+launches_bf16_step (one bf16 serving chunk, one bf16 B=1 training step). The residual_tail_backward entry's
 library_chain_ms is cuDNN's chain through autograd at its shape, B=1.
 
 The line before the last is the kernels' JSON; the last line is
@@ -1695,10 +1711,13 @@ def phase_training_times(dev, name, errs, step_counts, lane_counts, fwd_table):
 
 # --------------------------------------------------------------------------- phase 11
 
+# "--precision parity": the CLIs default to "perf" (TF32), and phase 11 sets the driver against the true-fp32
+# graph step of phase 10; cli.tuned_run has no --precision (its TrainConfig's "perf"), as the JAX one
 DRIVER_ARGS = ["--synthetic", "40", "--neurons", "16", "--dropout", "0.5", "--shuffle", "--augment",
-               "--validate_every", "2", "--save_every", "2"]  # 32 train / 8 validation tiles
+               "--validate_every", "2", "--save_every", "2", "--precision", "parity"]  # 32 train / 8 validation tiles
 TUNED_ARGS = ["--synthetic", "40", "--epochs", "2", "--neurons", "16"]
-TIMED_ARGS = ["--synthetic", "4000", "--neurons", "16", "--dropout", "0.5", "--shuffle", "--augment", "-e", "2"]
+TIMED_ARGS = ["--synthetic", "4000", "--neurons", "16", "--dropout", "0.5", "--shuffle", "--augment", "-e", "2",
+              "--precision", "parity"]
 TIMED_TRAIN = 3200  # 3,200 train / 800 validation tiles: the TGS train set's 4,000, split as the CLI splits it
 
 
@@ -2172,7 +2191,7 @@ def phase_serving_features(dev, smi):
         out = os.path.join(tmp, "out")
         on = [] if dev.type == "cuda" else ["--device", str(dev)]
         path = cli_infer.main(["-m", pth, "-i", data, "-o", out, "--neurons", str(SERVE_NEURONS), "--prule", "oja", "--tta", "tta4",
-                               "--save", "--quant", "int8"] + on)
+                               "--save", "--quant", "int8", "--precision", "parity"] + on)
         rows = [ln.split(",", 1) for ln in open(path).read().splitlines()[1:]]
         check(sorted(i for i, _ in rows) == [f"t{j}" for j in range(7)], "cli.infer: submission.csv ids")
         from PIL import Image
@@ -3262,7 +3281,7 @@ def phase_data_parallel(dev, smi, name):
             res = {}
             for key, epochs, resume in (("straight", 4, ""), ("first", 2, ""), ("resumed", 2, "first")):
                 cfg = TrainConfig(out_dir=os.path.join(tmp, key), epochs=epochs, neurons=16, dropout_ratio=0.5,
-                                  shuffle=True, augment=True, val_every=2, save_every=2,
+                                  shuffle=True, augment=True, val_every=2, save_every=2, matmul_precision="parity",
                                   resume_orbax=os.path.join(tmp, resume, RESUME_STATE) if resume else "")
                 res[key] = start_train(*split, cfg, device=dev, mesh=mesh)
                 res[key + "_file"] = torch.load(os.path.join(tmp, key, RESUME_STATE), weights_only=True)
@@ -3339,6 +3358,236 @@ def phase_data_parallel(dev, smi, name):
     return dp_counts
 
 
+# --------------------------------------------------------------------------- phase 17
+
+BF16_TILES = 512  # the bf16 serving request: 4 chunks of B
+BF16_ATOL = 2e-2  # bf16 probabilities against fp32 (the JAX bound, tests/test_export.py:224)
+BF16_CPU_TILES = 32  # the tiles held against the CPU port in bf16
+BF16_LOSS_RTOL = 3e-2  # bf16 training losses, card against the CPU port in bf16 (tests/test_patch_conv.py:233)
+BF16_INT8_ATOL = 0.05  # int8 under bf16 against fp32 (tests/test_quant.py:134-142)
+BF16_TTA_TILES = 128
+# "perf" (TF32 in cuDNN and cuBLAS) against "parity": TF32 keeps 10 of fp32's 23 mantissa bits, 3 more than
+# bf16's 7, so its bound is a quarter of the bf16 one on the probabilities and on the step's loss
+TF32_ATOL, TF32_LOSS_RTOL = BF16_ATOL / 4, BF16_LOSS_RTOL / 4
+
+
+def bf16_counts(k: int = 1) -> dict:
+    """Launches of k bf16 chunks or B=1 steps: the plastic head (B1, fp32) once each and no trunk kernel, since
+    the bf16 trunk is cuDNN's bf16 convs, as the JAX package runs no Pallas trunk in bf16."""
+    want = dict.fromkeys(COUNTED, 0)
+    want["plastic_head"] = k
+    return want
+
+
+def phase_bf16(dev, smi):
+    """compute_dtype bfloat16 at full width (UNetPRes neurons=16, nbf=101, phase 3's seeded weights): serving
+    against the card's fp32 forward and the CPU port in bf16, repeatable bits, the launches a chunk, tiles/s
+    against fp32; the bf16 artifact against the live forward; tta8 folded against one pass a view; int8 under
+    bf16; 8 B=1 training steps eager and as a CUDA graph against the CPU port in bf16, the graph step's ms and
+    a lanes=B step's samples/s against fp32; the precision policy ("perf" against "parity") on one B=1 graph
+    step and one serving chunk. Returns the launch counts of one bf16 chunk and of one bf16 B=1 step."""
+    from plastic_unet_tpu_torch.data.synthetic import synthetic_tiles
+    from plastic_unet_tpu_torch.eval.evaluate import predict_masks
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.ops.augment import TTA_VIEWS_8
+    from plastic_unet_tpu_torch.submit.export import export_predictor, load_predictor
+    from plastic_unet_tpu_torch.submit.inference import predict_masks_tta
+    from plastic_unet_tpu_torch.submit.quant import quantize_for_serving
+    from plastic_unet_tpu_torch.submit.server import MaskPredictor
+    from plastic_unet_tpu_torch.train.loop import GraphTrainStep, create_train_state, make_train_step
+    from plastic_unet_tpu_torch.utils.precision import matmul_precision, serving_numerics
+
+    t_phase = time.time()
+    bf16 = "bfloat16"
+
+    def model_of(dtype, rule="oja"):
+        m = UNetPRes(neurons=16, nbf=101, rule=rule, compute_dtype=dtype)
+        m.load_state_dict(seeded_model(16, rule, 0).state_dict(), strict=True)
+        return m
+
+    imgs, _ = synthetic_tiles(BF16_TILES, size=101, seed=81)
+    tiles = np.ascontiguousarray(imgs[:, 0, :, :, None])  # (512, 101, 101, 1) NHWC
+    X = torch.from_numpy(tiles).to(dev)
+    m32, mb = model_of(None).to(dev).eval(), model_of(bf16).to(dev).eval()
+    chunks = BF16_TILES // B
+
+    # -- serving
+    p32 = predict_masks(m32, X, device=dev)
+    reset_counts()
+    pb = predict_masks(mb, X, device=dev)
+    torch.cuda.synchronize()
+    chunk_launches = expect_launches(f"MAIN PATH (bf16 serving): {BF16_TILES} tiles = {chunks} chunks",
+                                     bf16_counts(chunks), 17)
+    chunk_launches = {k: v // chunks for k, v in chunk_launches.items()}
+    check(pb.dtype == torch.float32 and tuple(pb.shape) == (BF16_TILES, 101, 101) and bool(torch.isfinite(pb).all()),
+          "bf16 serving: bad probabilities")
+    e32 = float((pb - p32).abs().max())
+    check(0 < e32 <= BF16_ATOL, f"bf16 serving against the card's fp32: max|diff| {e32:.3g} (want in (0, {BF16_ATOL}])")
+    again = predict_masks(mb, X, device=dev)
+    check(bool(torch.equal(again, pb)), "bf16 serving: two runs differ")
+    ref = predict_masks(model_of(bf16).eval(), tiles[:BF16_CPU_TILES], chunk=BF16_CPU_TILES, device="cpu")
+    ecpu = float((pb[:BF16_CPU_TILES].cpu() - ref).abs().max())
+    check(ecpu <= BF16_ATOL, f"bf16 serving against the CPU port in bf16: max|diff| {ecpu:.3g} > {BF16_ATOL}")
+    print(f"[17] bf16 serving, neurons=16 oja, chunk {B}, {BF16_TILES} tiles: against the card's fp32 forward "
+          f"max|diff| {e32:.3g} (bound {BF16_ATOL}), against the CPU port in bf16 ({BF16_CPU_TILES} tiles) "
+          f"{ecpu:.3g}; two runs equal bit for bit", flush=True)
+
+    preds = {"fp32": MaskPredictor(m32, device=dev), "bf16": MaskPredictor(mb, device=dev)}
+    host = tiles[:, :, :, 0]
+
+    def serve_rate(pred):
+        """tiles/s of a 512-tile request from the host, host clock, median of 3."""
+        pred.predict_probs(host[:B])
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred.predict_probs(host)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return BF16_TILES / float(np.median(secs))
+
+    turns = [(k, serve_rate(preds[k])) for k in ("fp32", "bf16", "bf16", "fp32")]
+    rate = {k: float(np.mean([r for kk, r in turns if kk == k])) for k in preds}
+    xc = X[:B]
+    h0 = m32.initial_zero_hebb(B, device=dev)
+    with torch.inference_mode(), serving_numerics():  # the serving path's deterministic cuDNN
+        fwd_ms = {k: time_ms(lambda m=m: m(xc, h0))[0] for k, m in (("fp32", m32), ("bf16", mb))}
+    print(f"[17] serving tiles/s (NVIDIA card: {smi}), neurons=16, chunk {B}, {BF16_TILES} tiles from the host, "
+          f"host clock, median of 3, in turns fp32, bf16, bf16, fp32: {[(k, round(r, 1)) for k, r in turns]}; "
+          f"bf16 {rate['bf16']:.1f} against fp32 {rate['fp32']:.1f} ({rate['bf16'] / rate['fp32']:.3f}x); forward "
+          f"device time per chunk bf16 {fwd_ms['bf16']:.3f} ms, fp32 {fwd_ms['fp32']:.3f} ms", flush=True)
+
+    # -- the bf16 artifact
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export_predictor(mb, os.path.join(tmp, "bf16"), platforms=(dev.type,))
+        with open(os.path.join(path, "meta.json")) as f:
+            check(json.load(f)["compute_dtype"] == bf16, "bf16 artifact: meta.json does not say bfloat16")
+        art = load_predictor(path, device=None if dev.type == "cuda" else dev).warmup()
+        reset_counts()
+        got = art.predict(tiles)
+        torch.cuda.synchronize()
+        expect_launches(f"the bf16 artifact, {BF16_TILES} tiles", bf16_counts(chunks), 17)
+        check(np.array_equal(got, pb.cpu().numpy()), "the bf16 artifact differs from the live bf16 forward")
+    print(f"[17] the bf16 artifact (export_predictor, load_predictor): meta.json says bfloat16; {BF16_TILES} tiles "
+          f"equal to the live bf16 forward bit for bit", flush=True)
+
+    # -- tta8 folded against one pass a view (reported, not held: the JAX package does not require it)
+    xt = X[:BF16_TTA_TILES]
+    folded = predict_masks_tta(mb, xt, transforms=TTA_VIEWS_8, batch_views=True, device=dev)
+    passes = predict_masks_tta(mb, xt, transforms=TTA_VIEWS_8, device=dev)
+    print(f"[17] bf16 tta8, {BF16_TTA_TILES} tiles: views folded into the batch equal to one pass a view: "
+          f"{bool(torch.equal(folded, passes))}, max|diff| {float((folded - passes).abs().max()):.3g}", flush=True)
+
+    # -- int8 under bf16
+    qb = quantize_for_serving(mb, tiles[:2 * B], device=dev)
+    reset_counts()
+    pq = predict_masks(qb, X, device=dev)
+    torch.cuda.synchronize()
+    expect_launches(f"int8 under bf16, {BF16_TILES} tiles", bf16_counts(chunks), 17)
+    eq = float((pq - p32).abs().max())
+    check(bool(torch.isfinite(pq).all()) and eq <= BF16_INT8_ATOL,
+          f"int8 under bf16 against fp32: max|diff| {eq:.3g} > {BF16_INT8_ATOL}")
+    print(f"[17] int8 under bf16 (calibrated on {2 * B} tiles): against fp32 max|diff| {eq:.3g} "
+          f"(bound {BF16_INT8_ATOL})", flush=True)
+    del m32, mb, preds, qb, art, X
+
+    # -- training, B=1, hebb, dropout 0
+    Xs, Ys = train_stream(TRAIN_STEPS, 1, seed=21)
+    cpu_state, cpu_losses = train_run("hebb", "cpu", Xs, Ys, graph=False, compute_dtype=bf16)
+    reset_counts()
+    state, losses = train_run("hebb", dev, Xs, Ys, graph=False, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    step_launches = expect_launches(f"MAIN PATH (bf16 training): {TRAIN_STEPS} eager B=1 steps",
+                                    bf16_counts(TRAIN_STEPS), 17)
+    step_launches = {k: v // TRAIN_STEPS for k, v in step_launches.items()}
+    check(bool(torch.isfinite(losses).all()), "bf16 training: non-finite losses")
+    rel = float(((losses.cpu() - cpu_losses).abs() / cpu_losses.abs()).max())
+    check(rel <= BF16_LOSS_RTOL, f"bf16 training losses against the CPU port in bf16: relative {rel:.3g}")
+    check(all(p.dtype == torch.float32 for p in state.model.parameters())
+          and float(state.model.eta.detach()) == float(np.float32(0.01)), "bf16 training: parameters not fp32 or eta")
+    reset_counts()
+    g_state, g_losses = train_run("hebb", dev, Xs, Ys, graph=None, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    expect_launches("bf16 training as a CUDA graph (2 warm-up steps and the capture)", bf16_counts(3), 17)
+    check(bool(torch.equal(g_losses, losses)) and same_state(g_state, state), "bf16 training: graph differs from eager")
+    print(f"[17] bf16 training neurons=16 hebb B=1, {TRAIN_STEPS} steps: losses {[round(v, 6) for v in losses.tolist()]}"
+          f", relative max|diff| against the CPU port in bf16 {rel:.3g} (bound {BF16_LOSS_RTOL}); the CUDA graph "
+          f"equal to eager bit for bit (losses, parameters, trace); parameters fp32, eta == 0.01", flush=True)
+    del state, g_state, cpu_state
+
+    Xd, Yd = train_stream(16, 1, seed=23)
+    Xd, Yd = Xd.to(dev), Yd.to(dev)
+    Xl, Yl = train_stream(2, B, seed=24)
+    Xl, Yl = Xl.to(dev), Yl.to(dev)
+
+    def fresh(dtype, lanes=1):
+        m = UNetPRes(neurons=16, nbf=101, rule="oja", dropout_ratio=0.0, compute_dtype=dtype,
+                     generator=torch.Generator().manual_seed(3))
+        return create_train_state(m, TRAIN_LR, TRAIN_GAMMA, 1e6, lanes=lanes, device=dev)
+
+    def graph_of(dtype):
+        st = fresh(dtype)
+        step = GraphTrainStep(st, Xd.shape[1:], Yd.shape[1:])
+        step(st, (Xd[0], Yd[0]))
+        return step, st
+
+    eager = make_train_step()
+    graphs = {k: graph_of(dt) for k, dt in (("fp32", None), ("bf16", bf16))}
+    lanes = {k: fresh(dt, B) for k, dt in (("fp32", None), ("bf16", bf16))}
+    for st in lanes.values():
+        eager(st, (Xl[0], Yl[0]))
+    g_turns, l_turns = [], []
+    for k in ("fp32", "bf16", "bf16", "fp32"):
+        step, st = graphs[k]
+        g_turns.append((k, step_rate(step, st, Xd, Yd, 48) * 1e3))
+        l_turns.append((k, B / step_rate(eager, lanes[k], Xl, Yl, 4)))
+    g_ms = {k: float(np.mean([v for kk, v in g_turns if kk == k])) for k in graphs}
+    l_rate = {k: float(np.mean([v for kk, v in l_turns if kk == k])) for k in graphs}
+    print(f"[17] training (NVIDIA card: {smi}), neurons=16, host clock, median of 3, in turns fp32, bf16, bf16, fp32: "
+          f"the B=1 graph step {[(k, round(v, 4)) for k, v in g_turns]} ms, bf16 {g_ms['bf16']:.4f} against fp32 "
+          f"{g_ms['fp32']:.4f} ms ({g_ms['fp32'] / g_ms['bf16']:.3f}x); the eager lanes={B} step "
+          f"{[(k, round(v, 1)) for k, v in l_turns]} samples/s, bf16 {l_rate['bf16']:.1f} against fp32 "
+          f"{l_rate['fp32']:.1f} ({l_rate['bf16'] / l_rate['fp32']:.3f}x)", flush=True)
+    del graphs, lanes
+
+    # -- the precision policy: one fp32 B=1 graph step and one fp32 serving chunk under "perf" and "parity"
+    m32 = model_of(None).to(dev).eval()
+    h0 = m32.initial_zero_hebb(B, device=dev)
+    res, times = {}, {}
+    for policy in ("parity", "perf", "perf", "parity"):
+        with matmul_precision(policy):
+            st = fresh(None)
+            step = GraphTrainStep(st, Xd.shape[1:], Yd.shape[1:])
+            _, loss = step(st, (Xd[0], Yd[0]))
+            loss = float(loss)  # the graph's static output: read before the timed replays
+            params = torch.cat([p.detach().reshape(-1) for p in st.model.parameters()])
+            chunk = predict_masks(m32, xc, device=dev)
+            times.setdefault(policy, []).append((step_rate(step, st, Xd, Yd, 48) * 1e3,
+                                                 time_ms(lambda: predict_masks(m32, xc, device=dev))[0]))
+        res.setdefault(policy, []).append((loss, params, chunk))
+        del step, st
+    for policy, runs in res.items():
+        (l1, w1, c1), (l2, w2, c2) = runs
+        check(l1 == l2 and bool(torch.equal(w1, w2)) and bool(torch.equal(c1, c2)),
+              f"matmul_precision({policy!r}): the graph step or the chunk differs between two runs")
+    (lp, wp, cp), (lf, wf, cf) = res["parity"][0], res["perf"][0]
+    e_chunk, e_loss = float((cf - cp).abs().max()), abs(lf - lp) / abs(lp)
+    check(not torch.equal(wf, wp) and not torch.equal(cf, cp), '"perf" gives the bits of "parity": TF32 not engaged')
+    check(e_chunk <= TF32_ATOL and e_loss <= TF32_LOSS_RTOL,
+          f'"perf" against "parity": chunk max|diff| {e_chunk:.3g} (bound {TF32_ATOL}), step loss relative '
+          f'{e_loss:.3g} (bound {TF32_LOSS_RTOL})')
+    t = {k: (float(np.mean([a for a, _ in v])), float(np.mean([b for _, b in v]))) for k, v in times.items()}
+    print(f'[17] precision policy (NVIDIA card: {smi}), fp32 model: "perf" and "parity" each repeat their bits run '
+          f'to run (the B=1 graph step\'s loss and parameters, a {B}-tile chunk); "perf" differs from "parity" (TF32 '
+          f'engaged): chunk max|diff| {e_chunk:.3g} (bound {TF32_ATOL}), step loss relative {e_loss:.3g} (bound '
+          f'{TF32_LOSS_RTOL}); the graph step {t["perf"][0]:.4f} ms under "perf" against {t["parity"][0]:.4f} ms '
+          f'under "parity", a chunk\'s device time {t["perf"][1]:.3f} against {t["parity"][1]:.3f} ms (in turns '
+          f'parity, perf, perf, parity)', flush=True)
+    print(f"[17] phase 17 took {time.time() - t_phase:.1f} s", flush=True)
+    return chunk_launches, step_launches
+
+
 def time_bare_epoch(dev):
     """Seconds of one TIMED_TRAIN-step epoch of make_epoch_fn alone (the CUDA graph step, the loss copies,
     no permutation, augmentation or driver), at cli.train's model, rate and dropout under TIMED_ARGS."""
@@ -3361,8 +3610,9 @@ def time_bare_epoch(dev):
     return seconds
 
 
-def profile_training_step(dev, steps: int = 5):
-    """``--profile``: the B=1 eager training step under torch.profiler; device time by kernel name."""
+def profile_training_step(dev, steps: int = 5, compute_dtype=None):
+    """``--profile [bfloat16]``: the B=1 eager training step (in the compute dtype) under torch.profiler;
+    device time by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     from plastic_unet_tpu_torch.models.unet_res import UNetPRes
@@ -3370,7 +3620,8 @@ def profile_training_step(dev, steps: int = 5):
 
     X, Y = train_stream(steps, 1, seed=23)
     X, Y = X.to(dev), Y.to(dev)
-    model = UNetPRes(neurons=16, nbf=101, rule="oja", dropout_ratio=0.0, generator=torch.Generator().manual_seed(3))
+    model = UNetPRes(neurons=16, nbf=101, rule="oja", dropout_ratio=0.0, compute_dtype=compute_dtype,
+                     generator=torch.Generator().manual_seed(3))
     state = create_train_state(model, TRAIN_LR, TRAIN_GAMMA, 1e6, device=dev)
     step = make_train_step()
     step(state, (X[0], Y[0]))
@@ -3385,7 +3636,8 @@ def profile_training_step(dev, steps: int = 5):
     check(bool(rows), "torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    print(f"[profile] B=1 eager training step, neurons=16: {total / 1e3:.3f} ms of kernels per step "
+    print(f"[profile] B=1 eager training step, neurons=16, {compute_dtype or 'float32'}: {total / 1e3:.3f} ms of "
+          f"kernels per step "
           f"({sum(r[2] for r in rows):.0f} launches), by kernel:")
     for key, us, n in rows[:32]:
         print(f"[profile] {us:9.1f} us {us / total:6.1%} {n:6.1f} x  {key[:110]}")
@@ -3400,8 +3652,8 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.time()
     smi, name = phase_device()
-    if sys.argv[1:] == ["--profile"]:
-        profile_training_step(dev)
+    if sys.argv[1:2] == ["--profile"]:
+        profile_training_step(dev, compute_dtype=(sys.argv[2:] or [None])[0])
         return 0
     errs = phase_kernels(dev)
     phase_model(dev)
@@ -3439,6 +3691,10 @@ def main() -> int:
     dp_counts = phase_data_parallel(dev, smi, name)
     for entry in kernels:  # phase 16: the launches of one eager data-parallel step at lanes=B
         entry["launches_dp_step"] = dp_counts[entry.get("counter", entry["name"])]
+    bf16_chunk, bf16_step = phase_bf16(dev, smi)
+    for entry in kernels:  # phase 17: the launches of one bf16 serving chunk and of one bf16 B=1 step
+        entry["launches_bf16_chunk"] = bf16_chunk[entry.get("counter", entry["name"])]
+        entry["launches_bf16_step"] = bf16_step[entry.get("counter", entry["name"])]
     listed = sorted(e["name"] for e in kernels)
     check(listed == sorted(KERNELS) and all(set(KERNEL_KEYS) <= set(e) for e in kernels),
           f"the kernels line lists {listed}, want every kernel {sorted(KERNELS)} with {KERNEL_KEYS}")

@@ -21,7 +21,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model family (unet: the classic UNetP, 128-px geometry)")
     p.add_argument("--neurons", default=16, type=int)
     p.add_argument("--prule", default="hebb")
-    p.add_argument("--precision", default="perf", help="perf|parity (the forward runs in true fp32 either way)")
+    p.add_argument("--precision", default="perf",
+                   help="precision policy of cuBLAS/cuDNN calls: perf (TF32 allowed) | parity (true fp32)")
     p.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
     return p
 

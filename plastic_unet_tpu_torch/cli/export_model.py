@@ -15,9 +15,10 @@ Serve it:
 
 ``--arch unet`` exports the classic UNetP (``--nbf 128``; ``--neurons``
 is not read). ``--data-devices N`` writes the per-rank program of a
-``chunk / N`` batch, served by N ranks under torchrun (submit.export). Not
-ported, and raising when asked for: ``--compute-dtype bfloat16``
-(ROADMAP.md, queue A item A4d).
+``chunk / N`` batch, served by N ranks under torchrun (submit.export).
+``--compute-dtype bfloat16`` exports UNetPRes's mixed-precision forward (the
+trunk in bf16, the head in fp32); UNetP refuses it before any work
+(MaskPredictor.from_pth, as in the JAX CLI).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", default=128, type=int, help="static serving batch size")
     p.add_argument("--platforms", default="cpu,cuda", help="comma list of cpu, cuda: one program each")
     p.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"),
-                   help="float32 only (bfloat16: not ported)")
+                   help="trunk compute dtype of the exported graph (head stays fp32; unet_res only)")
     p.add_argument("--data-devices", default=1, type=int, metavar="N",
                    help="export the per-rank program of a chunk/N batch, served by N ranks (torchrun)")
     return p
@@ -53,10 +54,9 @@ def main(argv=None) -> str:
     from plastic_unet_tpu_torch.submit.export import check_supported, export_predictor
     from plastic_unet_tpu_torch.submit.server import MaskPredictor
 
-    check_supported(arch=args.arch, compute_dtype=args.compute_dtype, data_devices=args.data_devices,
-                    chunk=args.chunk)
+    check_supported(arch=args.arch, data_devices=args.data_devices, chunk=args.chunk)
     pred = MaskPredictor.from_pth(args.model, arch=args.arch, nbf=args.nbf, neurons=args.neurons, rule=args.prule,
-                                  device="cpu")
+                                  compute_dtype=args.compute_dtype, device="cpu")
     path = export_predictor(pred.model, args.out, chunk=args.chunk, tta=parse_tta(args.tta),
                             threshold=args.threshold, data_devices=args.data_devices,
                             platforms=tuple(s.strip() for s in args.platforms.split(",") if s.strip()))

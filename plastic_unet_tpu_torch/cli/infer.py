@@ -50,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(seismic-like) data (QUALITY.md TTA study)")
     p.add_argument("--fixed-threshold", dest="fixed_threshold", type=float, default=None,
                    help="skip the validation threshold search and use this value")
-    p.add_argument("--precision", default="perf", help="perf|parity (the forward runs in true fp32 either way)")
+    p.add_argument("--precision", default="perf",
+                   help="precision policy of cuBLAS/cuDNN calls: perf (TF32 allowed) | parity (true fp32)")
     p.add_argument("--use-pallas", action="store_true", default=False,
                    help="accepted; the CUDA plastic head is the only path")
     p.add_argument("--trunk-pad", type=int, default=0, metavar="SIZE",

@@ -11,10 +11,13 @@ Gloo with ``--device cpu``; ``--trace-mode`` picks the trace's coherence):
 
     python -m torch.distributed.run --nproc-per-node N -m plastic_unet_tpu_torch.cli.train --devices N [...]
 
-``--trunk-pad`` and
-``--remat-trunk`` reach the model; ``--fast-dw``, ``--patch-conv``,
-``--use-pallas``, ``--pallas-trunk`` and ``--rng-impl`` are accepted and
-change nothing. A flag for an option the port does not have yet raises
+``--trunk-pad``,
+``--remat-trunk`` and ``--compute-dtype bfloat16`` (the bf16 trunk) reach
+the model; ``--precision`` (perf by default, as in the JAX CLI: TF32 for
+cuDNN and cuBLAS; parity: true fp32) reaches the training step and the
+validation; ``--fast-dw``, ``--patch-conv``, ``--use-pallas``,
+``--pallas-trunk`` and ``--rng-impl`` are accepted and change nothing. A
+flag for an option the port does not have yet raises
 (train.driver.build_model).
 """
 
@@ -56,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel devices, one rank each (launch with torchrun --nproc-per-node N)")
     p.add_argument("--trace-mode", default="per_device", choices=["per_device", "pmean"],
                    help="hebb-trace coherence across data-parallel devices")
-    p.add_argument("--precision", default="perf", help="precision policy of cuBLAS/cuDNN calls: perf|parity "
-                   "(the training step runs in true fp32 either way)")
+    p.add_argument("--precision", default="perf", help="precision policy of cuBLAS/cuDNN calls: perf (TF32 allowed) | parity "
+                   "(true fp32); the CUDA kernels are plain fp32 under either")
     p.add_argument("--use-pallas", action="store_true", default=False,
                    help="accepted; the CUDA plastic head is the only path")
     p.add_argument("--pallas-trunk", action="store_true", default=False,
@@ -72,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trunk-pad", type=int, default=0, metavar="SIZE",
                    help="pad inputs to SIZExSIZE (e.g. 128) and crop the logits back (0 = off)")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="trunk compute dtype (bfloat16: not ported)")
+                   help="trunk compute dtype (head/loss stay fp32)")
     p.add_argument("--epochs-per-dispatch", type=int, default=1, metavar="K",
                    help="fold up to K epochs into one dispatch (1 = the reference's cadence; bit-identical either way)")
     p.add_argument("--augment", action="store_true", default=False, help="random flip/rotate augmentation")

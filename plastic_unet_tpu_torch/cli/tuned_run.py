@@ -35,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fold up to K epochs per dispatch (default: val_every with --short-run, else 1; "
                         "bit-identical either way)")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="bfloat16: not ported")
+                   help="trunk compute dtype (head/loss stay fp32)")
     p.add_argument("--tta", default="identity",
                    help="TTA views for inference: preset tta2/tta4/tta8 or a comma list (see cli.infer)")
     p.add_argument("--debug", action="store_true", default=True)

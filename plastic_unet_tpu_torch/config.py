@@ -5,8 +5,10 @@ with every field and default of the JAX package's TrainConfig.
 Fields of options the port does not have keep their names and defaults so
 that a configuration carries over; ``train.driver.build_model`` raises a
 ``ValueError`` naming each one set away from its default, with its reason
-(``compute_dtype`` other than float32, ``batch_norm``: the models have it,
-the JAX trainer cannot train it). ``arch`` is
+(``batch_norm``: the models have it, the JAX trainer cannot train it).
+``compute_dtype`` "bfloat16" runs UNetPRes's trunk in bf16 (UNetP refuses
+it), and ``matmul_precision`` is the cuDNN/cuBLAS policy the driver opens
+around training, validation and the saves (utils.precision). ``arch`` is
 ``"unet_res"`` (UNetPRes) or ``"unet"`` (the classic UNetP, which refuses
 the trunk options with the JAX driver's message).
 ``trunk_pad`` and ``remat_trunk`` reach the model. ``use_pallas``,
@@ -61,7 +63,7 @@ class TrainConfig:
     lanes: int = 1  # parallel lifetime streams (1 == reference)
     devices: int = 1  # data-parallel devices, one rank each (torchrun); 1 = one device, no process group
     loss_space: str = "logits"  # 'logits' (stable) | 'probs' (torch-exact clamp)
-    matmul_precision: str = "perf"  # 'parity' for true fp32 (TF32 off)
+    matmul_precision: str = "perf"  # cuDNN/cuBLAS may use TF32; 'parity' for true fp32 (TF32 off)
     use_pallas: bool = False  # accepted; the CUDA head is the only path on the card
     pallas_trunk: bool = False  # accepted; the CUDA residual tails are the only path on the card
     fast_dw: bool = False  # accepted; a TPU lowering of the same conv
@@ -69,7 +71,7 @@ class TrainConfig:
     patch_conv: int = 0  # accepted; a TPU lowering of the same conv
     trunk_pad: int = 0  # reflect-pad the input to (trunk_pad, trunk_pad), crop the logits back (0 = off)
     plastic: bool = True  # False = vanilla U-Net head (sigmoid on trunk logits)
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # 'bfloat16': UNetPRes's trunk in bf16 (params, head, loss fp32)
     augment: bool = False  # random flip/rotate per sample and epoch
     shuffle: bool = False  # per-epoch stream shuffle (the reference keeps a fixed order, train.py:91)
     tta: Sequence[str] = ("identity",)  # inference-time TTA views

@@ -3,8 +3,10 @@
 
 Every sample is evaluated with a zero hebb trace and the returned traces
 are discarded. The forward runs in chunks of ``chunk`` samples, the last one
-zero-padded to the full chunk, in parity precision with deterministic cuDNN
-(utils.precision.serving_numerics). The best-threshold search sweeps the
+zero-padded to the full chunk, under the precision policy in force ("parity"
+outside a matmul_precision block) with deterministic cuDNN
+(utils.precision.serving_numerics), in the model's compute dtype; the masks
+are fp32 either way. The best-threshold search sweeps the
 reference's 31 thresholds logit(linspace(0.3, 0.7, 31)) against the sigmoid
 outputs (a preserved quirk: logit-space values compared with probabilities)
 and keeps the first argmax.

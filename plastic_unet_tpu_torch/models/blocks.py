@@ -32,6 +32,17 @@ runs the ordinary forward (the tail on the conv3x3 kernel) and keeps the
 running max|input| of each; ``quant="int8"`` runs each of them through
 ops.quant (the tail as its four int8 convs with the ReLUs and relu-skips).
 
+A ``dtype`` (the model's compute dtype, torch.bfloat16) runs the JAX
+blocks' mixed precision (``nn.Conv(dtype=...)``): every trunk conv casts its
+input, weight and bias to it, rounds the conv to it, then adds the bias in
+it (:func:`conv_nhwc`), and the ReLUs, skips, pool, pad, concat and dropout
+run in it. The JAX blocks run the fused Pallas tail only at ``dtype`` None,
+so a bf16 trunk is cuDNN's bf16 convs throughout, the four tail convs too
+(:func:`_conv_tail`): the route is picked by the dtype, and the fp32 kernels
+of ops.residual_tail and ops.conv3x3 are not called (they raise for bf16).
+BN computes its statistics and normalises in fp32 (:class:`BatchNorm`). The
+parameters stay fp32, and their gradients reach them through the casts.
+
 The classic family (UNetP; the JAX blocks' DoubleConv / UpClassic,
 reference unet_p.py:96-261) is at the end: :class:`DoubleConv`,
 :class:`InConv`, :class:`Down`, :class:`UpClassic`. Its convs, the
@@ -84,11 +95,23 @@ def dense_strides(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride() == tuple(want) else x.as_strided(x.shape, want)
 
 
-def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def conv_nhwc(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """An nn.Conv2d / nn.ConvTranspose2d on NHWC ``x`` through cuDNN's
-    channels_last path; returns contiguous NHWC, as the kernels take it."""
-    y = conv(dense_strides(x).permute(0, 3, 1, 2))
-    return y.permute(0, 2, 3, 1).contiguous()
+    channels_last path; returns contiguous NHWC, as the kernels take it.
+
+    ``dtype`` (None: the module's fp32 call) is flax ``nn.Conv(dtype=...)``:
+    the input, the weight and the bias cast to it, the conv without its bias
+    rounded to it, then the bias added in it. A conv with a fused bias would
+    add the bias before the one rounding (oneDNN does on the CPU)."""
+    if dtype is None:
+        y = conv(dense_strides(x).permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1).contiguous()
+    xd, w = dense_strides(x.to(dtype)).permute(0, 3, 1, 2), conv.weight.to(dtype)
+    if isinstance(conv, nn.ConvTranspose2d):
+        y = F.conv_transpose2d(xd, w, None, conv.stride, conv.padding, conv.output_padding)
+    else:
+        y = F.conv2d(xd, w, None, conv.stride, conv.padding)
+    return (y.permute(0, 2, 3, 1) + conv.bias.to(dtype)).contiguous()
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -135,7 +158,7 @@ def channel_dropout(x: torch.Tensor, rate: float, training: bool,
         keep = draw_keep(x.shape[0], x.shape[3], rate, training, generator, x.device)
     if keep is None:
         return x
-    return x * keep.to(x.dtype) / (1.0 - rate)
+    return x * keep.to(x.dtype) / float(torch.tensor(1.0 - rate, dtype=x.dtype))  # flax: keep_prob in x's dtype
 
 
 def quantizable(conv: nn.Module) -> nn.Module:
@@ -156,14 +179,18 @@ def _calibrated(conv: nn.Module) -> torch.Tensor:
     return conv.amax
 
 
-def quant_conv_nhwc(conv: nn.Module, x: torch.Tensor, quant: str, int8_fn) -> torch.Tensor:
-    """:func:`conv_nhwc` of a quantizable conv in mode ``quant``; ``int8_fn``
-    is its ops.quant form (qconv3_same or qconvT3_s2_valid)."""
+def quant_conv_nhwc(conv: nn.Module, x: torch.Tensor, quant: str, int8_fn,
+                    dtype: torch.dtype | None = None) -> torch.Tensor:
+    """:func:`conv_nhwc` of a quantizable conv in mode ``quant`` and compute
+    ``dtype``; ``int8_fn`` is its ops.quant form (qconv3_same or
+    qconvT3_s2_valid), which quantizes the fp32 weight, as the JAX
+    QuantConv3 does, and returns ``dtype``. calib records max|x| of the
+    input as it arrives (bf16 activations in a bf16 trunk)."""
     if quant == "int8":
-        return int8_fn(x, conv.weight, conv.bias, _calibrated(conv))
+        return int8_fn(x, conv.weight, conv.bias, _calibrated(conv), dtype or torch.float32)
     if quant == "calib":
-        _note_range(conv, x.abs().amax())
-    return conv_nhwc(conv, x)
+        _note_range(conv, x.abs().amax().to(torch.float32))
+    return conv_nhwc(conv, x, dtype)
 
 
 class BatchNorm(nn.Module):
@@ -186,17 +213,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Statistics and normalisation in fp32, as flax computes them; the
+        output in ``dtype``, or fp32 where it is None (flax BN without a
+        ``dtype`` promotes a bf16 input with its fp32 parameters)."""
+        xf = x.to(torch.float32)
         if self.training:
-            mean = x.mean(dim=(0, 1, 2))
-            var = torch.clamp_min((x * x).mean(dim=(0, 1, 2)) - mean * mean, 0.0)
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.EPS) * self.weight) + self.bias
+        y = (xf - mean) * (torch.rsqrt(var + self.EPS) * self.weight) + self.bias
+        return y if dtype is None else y.to(dtype)
 
 
 class ConvModule(nn.Module):
@@ -245,36 +277,41 @@ def _trunk(in_features: int, features: int, batch_norm: bool = False) -> nn.Modu
     ])
 
 
-def _bn_tail(blocks, x: torch.Tensor) -> torch.Tensor:
+def _bn_tail(blocks, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """The two residual blocks with BN, then the trunk's ReLU, unfused (the
-    JAX blocks do not fuse a BN tail): each conv one conv3x3_same."""
+    JAX blocks do not fuse a BN tail): each conv one conv3x3_same, or in a
+    compute ``dtype`` one cuDNN conv in it. As in the JAX blocks, only the
+    block's leading BN returns ``dtype``; the BNs after the convs return
+    fp32, so in bf16 the skip sums and the trunk's output are fp32."""
+    def conv(c, t):
+        return conv3x3_same(t, c.weight, c.bias) if dtype is None else conv_nhwc(c, t, dtype)
+
     for blk in blocks:
         c1, c2 = blk.conv[1], blk.conv[2]
         h = torch.relu(x)
-        y = torch.relu(c1.bn(conv3x3_same(blk.bn(h), c1.conv.weight, c1.conv.bias)))
-        x = c2.bn(conv3x3_same(y, c2.conv.weight, c2.conv.bias)) + h
+        y = torch.relu(c1.bn(conv(c1.conv, blk.bn(h, dtype))))
+        x = c2.bn(conv(c2.conv, y)) + h
     return torch.relu(x)
 
 
-def _int8_tail(convs, x0: torch.Tensor) -> torch.Tensor:
-    """The residual tail as four int8 convs (ops.quant), the ReLUs and the relu-skips."""
-    def q(conv, t):
-        return qconv3_same(t, conv.weight, conv.bias, _calibrated(conv))
-
+def _conv_tail(convs, x0: torch.Tensor, conv) -> torch.Tensor:
+    """The residual tail as four calls ``conv(module, x)`` (the int8 convs
+    of ops.quant, or cuDNN's in a compute dtype), the ReLUs and the relu-skips."""
     c11, c12, c21, c22 = convs
     h1 = torch.relu(x0)
-    x1 = q(c12, torch.relu(q(c11, h1))) + h1
+    x1 = conv(c12, torch.relu(conv(c11, h1))) + h1
     h2 = torch.relu(x1)
-    return torch.relu(q(c22, torch.relu(q(c21, h2))) + h2)
+    return torch.relu(conv(c22, torch.relu(conv(c21, h2))) + h2)
 
 
-def _trunk_forward(seq: nn.ModuleList, x: torch.Tensor, quant: str = "") -> torch.Tensor:
-    x = quant_conv_nhwc(seq[0], x, quant, qconv3_same)
+def _trunk_forward(seq: nn.ModuleList, x: torch.Tensor, quant: str = "",
+                   dtype: torch.dtype | None = None) -> torch.Tensor:
+    x = quant_conv_nhwc(seq[0], x, quant, qconv3_same, dtype)
     if hasattr(seq[1], "bn"):
-        return _bn_tail(seq[1:3], x)
+        return _bn_tail(seq[1:3], x, dtype)
     convs = seq[1].convs() + seq[2].convs()
-    if quant == "int8":
-        return _int8_tail(convs, x)
+    if quant == "int8" or dtype is not None:  # the JAX blocks fuse the tail only in fp32 and without quant
+        return _conv_tail(convs, x, lambda c, t: quant_conv_nhwc(c, t, quant, qconv3_same, dtype))
     params = seq[1].tail_params() + seq[2].tail_params()
     if quant == "calib":
         out, ranges = residual_tail_ranges(x, *params)
@@ -293,8 +330,8 @@ class DownRes(nn.Module):
         super().__init__()
         self.dconv = _trunk(in_features, features, batch_norm)
 
-    def forward(self, x: torch.Tensor, quant: str = "") -> torch.Tensor:
-        return _trunk_forward(self.dconv, x, quant)
+    def forward(self, x: torch.Tensor, quant: str = "", dtype: torch.dtype | None = None) -> torch.Tensor:
+        return _trunk_forward(self.dconv, x, quant, dtype)
 
 
 class Middle(nn.Module):
@@ -304,8 +341,8 @@ class Middle(nn.Module):
         super().__init__()
         self.mconv = _trunk(in_features, features, batch_norm)
 
-    def forward(self, x: torch.Tensor, quant: str = "") -> torch.Tensor:
-        return _trunk_forward(self.mconv, x, quant)
+    def forward(self, x: torch.Tensor, quant: str = "", dtype: torch.dtype | None = None) -> torch.Tensor:
+        return _trunk_forward(self.mconv, x, quant, dtype)
 
 
 class UpRes(nn.Module):
@@ -323,12 +360,12 @@ class UpRes(nn.Module):
         self.in_features, self.dropout_ratio = in_features, dropout_ratio
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor, generator: torch.Generator | None = None,
-                quant: str = "", keep: torch.Tensor | None = None) -> torch.Tensor:
-        x = quant_conv_nhwc(self.dconv, x, quant, qconvT3_s2_valid)
+                quant: str = "", keep: torch.Tensor | None = None, dtype: torch.dtype | None = None) -> torch.Tensor:
+        x = quant_conv_nhwc(self.dconv, x, quant, qconvT3_s2_valid, dtype)
         x = pad_to_match(x, skip.shape[1], skip.shape[2])
         x = torch.cat([x, skip], dim=-1)
         x = channel_dropout(x, self.dropout_ratio, self.training, generator, keep)
-        return self.uconv[1](x, quant)
+        return self.uconv[1](x, quant, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,16 @@ in the DownRes and Middle trunks (models.blocks), which then run unfused.
 The TPU lowerings of the same math are accepted and change nothing:
 ``fold_hires`` (space-to-depth, exact up to reassociation; the same
 parameters), ``patch_conv``, ``fast_dw``, ``use_pallas``, ``pallas_trunk``;
-``bilinear_upsample`` is ignored, as in the JAX module. ``compute_dtype``
-other than float32 raises (ROADMAP.md, queue A item A4d).
+``bilinear_upsample`` is ignored, as in the JAX module.
+
+``compute_dtype`` bfloat16 is the JAX module's mixed precision: the
+parameters stay fp32; the input is cast after the pad and the coords, the
+trunk runs in bf16 on cuDNN (models.blocks: every conv, ReLU, skip, pool,
+concat and dropout; the fused tail kernel is fp32-only, as the JAX fused
+tail is), the outconv's output goes back to fp32 before the crop, and the
+head (its kernel on the card), the sigmoid and the loss stay fp32. It
+composes with every option above and with int8 (the dequantized convs
+return bf16). The model keeps it as ``compute_dtype`` (None for fp32).
 """
 
 from __future__ import annotations
@@ -56,6 +64,20 @@ from plastic_unet_tpu_torch.ops.coords import add_coords
 from plastic_unet_tpu_torch.ops.export_ops import plastic_head_forward
 from plastic_unet_tpu_torch.ops.plastic_head import plastic_head
 from plastic_unet_tpu_torch.ops.plasticity import check_head_args
+
+
+COMPUTE_DTYPES = {None: None, "float32": None, torch.float32: None,
+                  "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
+
+
+def resolve_compute_dtype(compute_dtype) -> torch.dtype | None:
+    """None for fp32 (None, "float32", torch.float32), torch.bfloat16 for
+    "bfloat16" or torch.bfloat16; anything else raises."""
+    try:
+        return COMPUTE_DTYPES[compute_dtype]
+    except (KeyError, TypeError):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16 (a name or a torch dtype), "
+                         f"got {compute_dtype!r}") from None
 
 
 class PlasticOutput(NamedTuple):
@@ -128,9 +150,7 @@ class UNetPRes(PlasticHeadNet):
                  quant: str = "", trunk_pad: int = 0, generator: torch.Generator | None = None):
         super().__init__()
         check_head_args(rule, alfa_type)
-        if compute_dtype not in (None, torch.float32, "float32"):
-            raise ValueError(f"compute_dtype={compute_dtype!r}: the port runs float32 only "
-                             "(ROADMAP.md, queue A item A4d)")
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         if fold_hires and batch_norm:  # the JAX module's folded ConvModule refuses BN
             raise NotImplementedError("batch_norm is not supported in folded mode")
         n = neurons
@@ -216,6 +236,9 @@ class UNetPRes(PlasticHeadNet):
         x, pad_crop = self._pad(x.contiguous())
         if self.coord_conv:
             x = add_coords(x)
+        dt = self.compute_dtype
+        if dt is not None:  # after the pad and the coords, as the JAX module casts
+            x = x.to(dt)
         tr, r, g, q = self.training, self.dropout_ratio, generator, self.quant
         remat = self.remat_trunk and torch.is_grad_enabled()
 
@@ -227,23 +250,25 @@ class UNetPRes(PlasticHeadNet):
         def up(m, x, skip):
             if remat:  # the mask drawn here, once: the recompute reads this tensor
                 keep = draw_keep(x.shape[0], m.in_features, r, tr, g, x.device)
-                return checkpoint(m, x, skip, None, q, keep, use_reentrant=False, preserve_rng_state=False)
-            return m(x, skip, g, q)
+                return checkpoint(m, x, skip, None, q, keep, dt, use_reentrant=False, preserve_rng_state=False)
+            return m(x, skip, g, q, None, dt)
 
-        xc1 = trunk(self.conv1, x, q)
+        xc1 = trunk(self.conv1, x, q, dt)
         x1 = channel_dropout(max_pool_2x2(xc1), r / 2, tr, g)
-        xc2 = trunk(self.conv2, x1, q)
+        xc2 = trunk(self.conv2, x1, q, dt)
         x2 = channel_dropout(max_pool_2x2(xc2), r, tr, g)
-        xc3 = trunk(self.conv3, x2, q)
+        xc3 = trunk(self.conv3, x2, q, dt)
         x3 = channel_dropout(max_pool_2x2(xc3), r, tr, g)
-        xc4 = trunk(self.conv4, x3, q)
+        xc4 = trunk(self.conv4, x3, q, dt)
         x4 = channel_dropout(max_pool_2x2(xc4), r, tr, g)
-        x5 = trunk(self.mid, x4, q)
+        x5 = trunk(self.mid, x4, q, dt)
         u = up(self.uconv4, x5, xc4)
         u = up(self.uconv3, u, xc3)
         u = up(self.uconv2, u, xc2)
         u = up(self.uconv1, u, xc1)
-        out = conv_nhwc(self.outc.conv, u)  # (B, H, W, n_classes)
+        out = conv_nhwc(self.outc.conv, u, dt)  # (B, H, W, n_classes)
+        if dt is not None:
+            out = out.to(torch.float32)  # the head, the sigmoid and the loss stay fp32
         if pad_crop:
             out = crop_from(out, pad_crop)  # back to the (nbf, nbf) head geometry
 

@@ -106,22 +106,26 @@ def _dequant(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor, bias: torch.
     return acc.to(torch.float32) * (sx * sw) + bias.to(torch.float32)
 
 
-def qconv3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+def qconv3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, amax: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """3x3 SAME stride-1 conv in int8 with int32 accumulation.
     x: (B, H, W, Cin); weight: (Cout, Cin, 3, 3); bias: (Cout,); amax: scalar.
-    Returns (B, H, W, Cout) fp32."""
+    Returns (B, H, W, Cout), dequantized in fp32 and cast to ``out_dtype``
+    (a bf16 model's activations, as the JAX ``out_dtype``)."""
     qx, sx = quantize_act(x, amax)
     qw, sw = quantize_weight(weight, cout_axis=0)
     b, h, w, cin = qx.shape
     cout = qw.shape[0]
     acc = int8_matmul(_im2col3(qx), qw.permute(2, 3, 1, 0).reshape(9 * cin, cout))
-    return _dequant(acc, sx, sw, bias).reshape(b, h, w, cout)
+    return _dequant(acc, sx, sw, bias).reshape(b, h, w, cout).to(out_dtype)
 
 
-def qconvT3_s2_valid(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+def qconvT3_s2_valid(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, amax: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """ConvTranspose k3/s2/VALID (the UpRes upsampler) in int8 with int32
     accumulation: out[2i+ky, 2j+kx] += x[i, j] @ w[:, :, ky, kx].
-    x: (B, H, W, Cin); weight: (Cin, Cout, 3, 3). Returns (B, 2H+1, 2W+1, Cout) fp32."""
+    x: (B, H, W, Cin); weight: (Cin, Cout, 3, 3). Returns (B, 2H+1, 2W+1, Cout)
+    in ``out_dtype`` (dequantized in fp32)."""
     qx, sx = quantize_act(x, amax)
     qw, sw = quantize_weight(weight, cout_axis=1)
     b, h, w, cin = qx.shape
@@ -132,7 +136,7 @@ def qconvT3_s2_valid(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, 
     for ky in range(3):
         for kx in range(3):
             acc[:, ky:ky + 2 * h:2, kx:kx + 2 * w:2, :] += taps[:, :, :, ky, kx, :]
-    return _dequant(acc, sx, sw, bias)
+    return _dequant(acc, sx, sw, bias).to(out_dtype)
 
 
 def qconv3_same_plain(x, weight, bias, amax):

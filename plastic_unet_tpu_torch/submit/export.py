@@ -53,8 +53,10 @@ parallel.mesh): each rank runs its share of every chunk and an all-gather
 returns the whole chunk to every rank, where the JAX loader places the
 chunk on N local devices.
 
-Not ported (raises and names its ROADMAP.md queue item): bfloat16 graphs
-(A4d).
+A bfloat16 UNetPRes (``compute_dtype``, alone or with int8) exports its
+mixed-precision forward: the trunk's bf16 cuDNN convs are ATen ops in the
+program, the head stays the custom op, and the manifest records
+``"compute_dtype": "bfloat16"``, as the JAX manifest does.
 """
 
 from __future__ import annotations
@@ -86,16 +88,13 @@ def program_file(platform: str) -> str:
     return f"forward.{platform}.pt2"
 
 
-def check_supported(*, arch: str = "unet_res", compute_dtype=None, data_devices: int = 1, chunk: int = 128) -> None:
-    """Raise for what the port does not export yet, naming its queue item,
-    and for a chunk that ``data_devices`` ranks cannot share evenly."""
+def check_supported(*, arch: str = "unet_res", data_devices: int = 1, chunk: int = 128) -> None:
+    """Raise, before any work, for an unknown arch and for a chunk that
+    ``data_devices`` ranks cannot share evenly."""
     if data_devices < 1:
         raise ValueError(f"data_devices must be >= 1, got {data_devices}")
     if chunk % data_devices:
         raise ValueError(f"chunk ({chunk}) must be divisible by data_devices ({data_devices})")
-    if compute_dtype not in (None, torch.float32, "float32"):
-        raise ValueError(f"compute_dtype={compute_dtype!r}: the port exports fp32 only "
-                         "(ROADMAP.md, queue A item A4d)")
     if arch not in ("unet_res", "unet"):
         raise ValueError(f"unknown arch {arch!r} (use 'unet_res' or 'unet')")
 
@@ -126,8 +125,9 @@ class _ServingForward(nn.Module):
 def export_predictor(model: nn.Module, path: str, *, chunk: int = 128, tta: Sequence[str] = ("identity",),
                      threshold: float | None = None, platforms: Sequence[str] = PLATFORMS,
                      data_devices: int = 1) -> str:
-    """Write the serving forward of ``model`` (a UNetPRes, fp32 or the int8
-    model of submit.quant.quantize_for_serving, or an fp32 UNetP) as an
+    """Write the serving forward of ``model`` (a UNetPRes, fp32 or bf16, and
+    either as the int8 model of submit.quant.quantize_for_serving, or an
+    fp32 UNetP) as an
     artifact directory at ``path``; returns ``path``.
 
     chunk: the static batch of the program (the loader pads partial chunks).
@@ -172,7 +172,7 @@ def export_predictor(model: nn.Module, path: str, *, chunk: int = 128, tta: Sequ
         "platforms": list(platforms),
         "data_devices": int(data_devices),
         "model": type(model).__name__,
-        "compute_dtype": "float32",
+        "compute_dtype": "bfloat16" if getattr(model, "compute_dtype", None) is not None else "float32",
         "rule": model.rule,
         "neurons": int(model.neurons) if hasattr(model, "neurons") else None,
         "nbf": int(model.nbf),

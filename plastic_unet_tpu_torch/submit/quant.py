@@ -32,8 +32,10 @@ def _with_quant(model, mode: str, device):
 def calibrate(model, X_calib, *, chunk: int = 128, device=None) -> dict:
     """The activation range (amax = max|input| seen) of each quantized conv,
     over ``X_calib`` (N, H, W, C), as ``{module prefix: 0-d tensor}``. The
-    forward is the fp32 one (on CUDA, the kernels), so the ranges are those
-    of the served distribution. ``model`` is not changed.
+    forward is the model's own (fp32 on CUDA: the kernels; a bf16 model's
+    bf16 trunk, whose bf16 activations the ranges then record, as the JAX
+    calib mode does under a bf16 model), so the ranges are those of the
+    served distribution. ``model`` is not changed.
 
     Chunks are not zero-padded, unlike predict_masks: all-zero samples would
     push bias-only activations through the net and widen the ranges of the

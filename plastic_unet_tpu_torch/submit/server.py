@@ -11,7 +11,7 @@ import torch
 
 from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.models.unet_classic import UNetP
-from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+from plastic_unet_tpu_torch.models.unet_res import UNetPRes, resolve_compute_dtype
 from plastic_unet_tpu_torch.ops.rle import encode_batch
 from plastic_unet_tpu_torch.submit.inference import binarize, predict_masks_tta
 from plastic_unet_tpu_torch.utils.torch_interop import load_pth
@@ -35,19 +35,19 @@ class MaskPredictor:
         """Load a reference-format ``.pth``: UNetPRes (``arch="unet_res"``) or
         the classic UNetP (``arch="unet"``; ``neurons`` is not read); ``key``
         picks the state_dict inside a training checkpoint (e.g.
-        ``"model"``). fp32 only: another ``compute_dtype`` raises."""
+        ``"model"``). ``compute_dtype`` (torch.bfloat16 or "bfloat16")
+        serves UNetPRes in mixed precision (models.unet_res); UNetP is fp32
+        only and refuses it, as the JAX predictor does."""
         if arch not in ("unet_res", "unet"):
             raise ValueError(f"unknown arch {arch!r} (use 'unet_res' or 'unet')")
-        if compute_dtype not in (None, torch.float32, "float32"):
-            if arch == "unet":  # the JAX predictor's message
-                raise ValueError("compute_dtype is a unet_res-only knob (arch='unet' is fp32)")
-            raise ValueError(f"compute_dtype={compute_dtype!r}: the port serves fp32 only "
-                             "(ROADMAP.md, queue A item 4)")
+        if arch == "unet" and resolve_compute_dtype(compute_dtype) is not None:  # the JAX predictor's message
+            raise ValueError("compute_dtype is a unet_res-only knob (arch='unet' is fp32)")
         dev = resolve_device(device)
         if arch == "unet":
             model = UNetP(n_channels=1, n_classes=1, nbf=nbf, rule=rule)
         else:
-            model = UNetPRes(n_channels=1, n_classes=1, nbf=nbf, neurons=neurons, rule=rule)
+            model = UNetPRes(n_channels=1, n_classes=1, nbf=nbf, neurons=neurons, rule=rule,
+                             compute_dtype=compute_dtype)
         model.load_state_dict(load_pth(path, key), strict=True)
         return cls(model, device=dev, **kw)
 

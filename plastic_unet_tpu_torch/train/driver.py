@@ -75,7 +75,8 @@ def build_model(cfg: TrainConfig) -> torch.nn.Module:
     """The configured model (nbf = image width, as at every reference call
     site), its weights drawn from ``cfg.seed``: UNetPRes for
     ``arch="unet_res"``, the classic UNetP for ``arch="unet"``. For
-    UNetPRes ``trunk_pad`` and ``remat_trunk`` reach the model;
+    UNetPRes ``trunk_pad``, ``remat_trunk`` and ``compute_dtype`` reach the
+    model (the weights are the same fp32 draws whatever the dtype);
     ``patch_conv``, ``fast_dw``, ``use_pallas`` and ``pallas_trunk`` (TPU
     lowerings of the same math), ``bilinear_upsample`` (unused by UNetPRes,
     as in the JAX package) and ``rng_impl`` (the JAX PRNG; the port draws
@@ -83,19 +84,14 @@ def build_model(cfg: TrainConfig) -> torch.nn.Module:
     and change nothing. UNetP rejects the trunk options with the JAX
     driver's message, takes ``bilinear_upsample`` and ``use_pallas``, and,
     as in the JAX driver, is built plastic whatever ``plastic`` says. Raises
-    ValueError naming every option the port does not have, with its
-    reason."""
+    ValueError for ``batch_norm``, which no trainer runs, with the reason."""
     if cfg.arch not in ("unet_res", "unet"):
         raise ValueError(f"unknown arch {cfg.arch!r} (use 'unet_res' or 'unet')")
-    bad = []
-    if cfg.compute_dtype != "float32" and cfg.arch == "unet_res":
-        bad.append(f"compute_dtype={cfg.compute_dtype!r} (reduced precision: queue A item A4d)")
     if cfg.batch_norm:
-        bad.append(f"batch_norm ({'UNetPRes' if cfg.arch == 'unet_res' else 'UNetP'} has it, but the JAX train "
-                   "step applies a model with params only and cannot train one with batch_stats, so there is no "
-                   "trainer to port)")
-    if bad:
-        raise ValueError(f"plastic_unet_tpu_torch does not have {bad} (ROADMAP.md, queue A)")
+        raise ValueError(f"plastic_unet_tpu_torch does not train batch_norm: "
+                         f"{'UNetPRes' if cfg.arch == 'unet_res' else 'UNetP'} has it, but the JAX train step "
+                         "applies a model with params only and cannot train one with batch_stats, so there is no "
+                         "trainer to port (ROADMAP.md, queue A)")
     if cfg.rng_impl not in RNG_IMPLS:
         raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got {cfg.rng_impl!r}")
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -116,7 +112,7 @@ def build_model(cfg: TrainConfig) -> torch.nn.Module:
                     bilinear_upsample=cfg.bilinear_upsample, use_pallas=cfg.use_pallas,
                     pallas_trunk=cfg.pallas_trunk, fast_dw=cfg.fast_dw, patch_conv=cfg.patch_conv,
                     plastic=cfg.plastic, remat_trunk=cfg.remat_trunk, trunk_pad=cfg.trunk_pad,
-                    generator=gen)
+                    compute_dtype=cfg.compute_dtype, generator=gen)
 
 
 def name_map_for(cfg: TrainConfig) -> dict:

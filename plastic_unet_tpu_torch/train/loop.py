@@ -14,7 +14,12 @@ the step is captured once into a CUDA graph and replayed per sample
 launches, a few microseconds of device work each, so issued one by one the
 host is the limit. The captured step is the eager step, kernel for kernel,
 and gives the same bits (the step runs under utils.precision.training_numerics:
-true fp32 and deterministic cuDNN algorithms). On the CPU the loop is eager.
+the precision policy in force, "parity" unless a matmul_precision block says
+otherwise, and deterministic cuDNN algorithms; a graph is captured under the
+policy in force at its capture). On the CPU the loop is eager. A model with
+a bfloat16 ``compute_dtype`` trains the same way: its parameters, Adam and
+the gradients Adam reads stay fp32, the gradients reaching them through the
+model's casts.
 
 Lanes (B>1): the sample stream is split into B independent lifetime streams
 (:func:`reshape_stream`), each with its own trace, trained with one Adam

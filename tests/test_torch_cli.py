@@ -6,6 +6,7 @@ training wrote, held against the JAX CLIs); CUDA by default; the flags of
 options the port lacks raise."""
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -112,11 +113,17 @@ def test_cli_default_device_is_cuda(tmp_path):
 
 # the ids of the cases as they were when the options of test_cli_train_ported_flags_run raised too;
 # --arch unet is ported and raises UNetP's geometry error on the CLI's 101-px tiles, as the JAX CLI does;
-# --devices 2 is ported and, outside torchrun's environment, raises naming it
+# --devices 2 is ported and, outside torchrun's environment, raises naming it;
+# --compute-dtype bfloat16 is ported (match None): it trains the bf16 trunk
 @pytest.mark.parametrize("flags,match", [pytest.param(["--arch", "unet"], "divisible by 16", id="flags1"),
                                          pytest.param(["--devices", "2"], "torchrun", id="flags2"),
-                                         pytest.param(["--compute-dtype", "bfloat16"], "does not have", id="flags3")])
+                                         pytest.param(["--compute-dtype", "bfloat16"], None, id="flags3")])
 def test_cli_train_unported_flags_raise(tmp_path, flags, match):
+    if match is None:
+        res = ttrain.main(["--synthetic", "5", "-o", str(tmp_path), "-e", "1", "--neurons", "2", "--device", "cpu"]
+                          + flags)
+        assert res.model.compute_dtype == torch.bfloat16 and np.isfinite(res.all_losses).all()
+        return
     with pytest.raises(ValueError, match=match):
         ttrain.main(["--synthetic", "10", "-o", str(tmp_path), "-e", "1", "--neurons", "2", "--device", "cpu"]
                     + flags)
@@ -213,17 +220,27 @@ def test_cli_export_roundtrips(tmp_path):
     np.testing.assert_allclose(got, want, rtol=0, atol=1.2e-7)
 
 
-@pytest.mark.parametrize("flags,item", [(["--compute-dtype", "bfloat16"], "A4d"),
+@pytest.mark.parametrize("flags,item", [(["--compute-dtype", "bfloat16"], None),
                                         (["--data-devices", "3"], "divisible by data_devices"),
-                                        (["--arch", "unet", "--compute-dtype", "bfloat16"], "A4d")],
+                                        (["--arch", "unet", "--compute-dtype", "bfloat16"], "unet_res-only")],
                          ids=["bfloat16", "data-devices", "unet"])
 def test_cli_export_unported_flags_raise(tmp_path, flags, item):
-    """What the port does not export raises before any work and names its
-    ROADMAP.md queue item (UNetP exports, in fp32 only); sharded export is
-    ported, and a chunk (128) that the data devices cannot share evenly
-    raises before any work too."""
+    """UNetP exports in fp32 only and refuses a compute dtype before any
+    work, with the JAX predictor's message; sharded export is ported, and a
+    chunk (128) that the data devices cannot share evenly raises before any
+    work too. bfloat16 (item None) is ported: it exports the bf16 graph."""
     from plastic_unet_tpu_torch.cli import export_model
 
+    if item is None:
+        from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+
+        pth = str(tmp_path / "m.pth")
+        torch.save(UNetPRes(nbf=16, neurons=2, generator=torch.Generator().manual_seed(2)).state_dict(), pth)
+        out = export_model.main(["--model", pth, "--out", str(tmp_path / "a"), "--nbf", "16", "--neurons", "2",
+                                 "--chunk", "2", "--platforms", "cpu", *flags])
+        with open(os.path.join(out, "meta.json")) as f:
+            assert json.load(f)["compute_dtype"] == "bfloat16"
+        return
     with pytest.raises(ValueError, match=item):
         export_model.main(["--model", str(tmp_path / "none.pth"), "--out", str(tmp_path / "a"), *flags])
 

@@ -72,19 +72,19 @@ def _logs(workdir, procs) -> str:
 
 # --------------------------------------------------------------------------- the rank's side
 
-def _model(inputs, dropout=0.0):
+def _model(inputs, dropout=0.0, compute_dtype=None):
     from plastic_unet_tpu_torch.models.unet_res import UNetPRes
 
-    model = UNetPRes(n_channels=1, n_classes=1, neurons=2, dropout_ratio=dropout, nbf=NBF)
+    model = UNetPRes(n_channels=1, n_classes=1, neurons=2, dropout_ratio=dropout, nbf=NBF, compute_dtype=compute_dtype)
     model.load_state_dict(inputs["params0"], strict=True)
     return model
 
 
-def _state(inputs, lanes, dropout=0.0, generator=None):
+def _state(inputs, lanes, dropout=0.0, generator=None, compute_dtype=None):
     from plastic_unet_tpu_torch.train.loop import create_train_state
 
-    return create_train_state(_model(inputs, dropout), LR, GAMMA, STEPLR, lanes=lanes, generator=generator,
-                              device="cpu")
+    return create_train_state(_model(inputs, dropout, compute_dtype), LR, GAMMA, STEPLR, lanes=lanes,
+                              generator=generator, device="cpu")
 
 
 def _snapshot(state, losses) -> dict:
@@ -102,19 +102,19 @@ def _replicated(state) -> bool:
     return all(torch.equal(parts[0], q) for q in parts)
 
 
-def _dp_epoch(inputs, mesh, lanes, trace_mode) -> dict:
+def _dp_epoch(inputs, mesh, lanes, trace_mode, compute_dtype=None) -> dict:
     from plastic_unet_tpu_torch.parallel import make_dp_epoch_fn, shard_stream
 
-    state = _state(inputs, lanes)
+    state = _state(inputs, lanes, compute_dtype=compute_dtype)
     X, Y = shard_stream(inputs["X"], inputs["Y"], mesh, lanes_per_device=lanes)
     state, losses = make_dp_epoch_fn(mesh, trace_mode=trace_mode)(state, X, Y)
     return dict(_snapshot(state, losses), replicated=_replicated(state), shard=X.clone())
 
 
-def _scenario_dp(inputs, mode, lanes):
+def _scenario_dp(inputs, mode, lanes, compute_dtype=None):
     from plastic_unet_tpu_torch.parallel import make_mesh
 
-    return _dp_epoch(inputs, make_mesh(device="cpu"), lanes, mode)
+    return _dp_epoch(inputs, make_mesh(device="cpu"), lanes, mode, compute_dtype)
 
 
 def _scenario_multislice(inputs):
@@ -272,6 +272,7 @@ SCENARIOS = {
     "dp_pmean_1": lambda i: _scenario_dp(i, "pmean", 1),
     "dp_per_device_2": lambda i: _scenario_dp(i, "per_device", 2),
     "dp_pmean_2": lambda i: _scenario_dp(i, "pmean", 2),
+    "dp_bf16": lambda i: _scenario_dp(i, "per_device", 1, "bfloat16"),
     "multislice": _scenario_multislice,
     "shuffle": _scenario_shuffle,
     "generators": _scenario_generators,

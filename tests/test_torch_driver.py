@@ -221,7 +221,8 @@ def test_config_fields_and_run_params_match_jax():
 
 # the ids of the cases as they were when every option here raised; option0 was arch="unet" alone
 # until UNetP was ported, and is now UNetP with a trunk option it refuses, as the JAX driver does;
-# option1 (devices=2) is ported, and start_train raises, naming torchrun, without a process group of 2
+# option1 (devices=2) is ported, and start_train raises, naming torchrun, without a process group of 2;
+# option6 (compute_dtype="bfloat16") is ported, and build_model makes the bf16 UNetPRes
 @pytest.mark.parametrize("option", [pytest.param(dict(arch="unet", remat_trunk=True), id="option0"),
                                     pytest.param(dict(devices=2), id="option1"),
                                     pytest.param(dict(compute_dtype="bfloat16"), id="option6"),
@@ -233,6 +234,10 @@ def test_unported_options_raise(option, tmp_path):
         cfg = TrainConfig(out_dir=str(tmp_path), im_width=SIZE, im_height=SIZE, neurons=2, **option)
         with pytest.raises(ValueError, match="torchrun"):
             driver.start_train(x_train, x_valid, y_train, y_valid, cfg, device="cpu")
+        return
+    if name == "compute_dtype":
+        m = driver.build_model(TrainConfig(im_width=SIZE, neurons=2, **option))
+        assert m.compute_dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in m.parameters())
         return
     with pytest.raises(ValueError, match=name):
         driver.build_model(TrainConfig(**option))
@@ -265,9 +270,9 @@ def test_unknown_rng_impl_raises():
 def test_unported_option_messages_give_reasons():
     with pytest.raises(ValueError) as e:
         driver.build_model(TrainConfig(devices=2, compute_dtype="bfloat16", batch_norm=True))
-    for reason in ("A4d", "batch_stats"):
-        assert reason in str(e.value)
+    assert "batch_stats" in str(e.value)
     assert "devices" not in str(e.value)  # data parallel is ported (start_train's route)
+    assert "compute_dtype" not in str(e.value) and "A4d" not in str(e.value)  # so is the bf16 trunk
 
 
 def test_accepted_options_and_no_plastic():
