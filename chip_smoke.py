@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile [bfloat16]   # only: the B=1 training step's device time by kernel name
+                                                 # (utils.profiling.profile_to; trace in out/profile)
 
 Phases, each printing its lines; any failed check raises and the exit code
 is non-zero:
@@ -225,6 +226,19 @@ is non-zero:
      (TF32 engaged) within a quarter of the bf16 bounds, and both times.
      The CLIs default to "perf"; phases 11, 12 and 16 pass "parity", the
      policy their numbers are set against.
+ 18. the host tools: the native host library's status (ops.native: built
+     from native/plasticnet_native.cc into build/plastic_unet_tpu_torch/,
+     loaded, or the compiler's or loader's reason); predict() on 512 tiles
+     (phase 12's model) with its launch counts; the host CPU seconds of
+     ops.rle.encode over 18,000 masks; where the library loaded, the same
+     submission.csv bytes with the native and the numpy encoder, the
+     native RLE of the 18,000 masks equal to ops.rle.encode string for
+     string (and its host seconds), the native PNG loader equal to
+     data.images.load_image (1e-6) on write_tgs_dir's tiles, an RGB tile and
+     a resize, the native IoU sweep equal to ops.iou (1e-6); profile_to
+     around two B=1 eager steps in trace("step") ranges: the trace holds the
+     ranges and B1's kernel; predict(visualize=True) raises ImportError
+     naming matplotlib where it is not installed.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
 belong to the entry's "shape"; "launches" counts the serving request of
@@ -264,7 +278,8 @@ and _n128_b1 for B=1: ms, plain_ms, bmm_ms, bound_ms, bound_by,
 max_abs_err) and classic_tiles_s, UNetP's serving tiles/s by variant.
 Phase 16 adds to every entry launches_dp_step (one eager data-parallel step
 at lanes=128, world size 1), phase 17 launches_bf16_chunk and
-launches_bf16_step (one bf16 serving chunk, one bf16 B=1 training step). The residual_tail_backward entry's
+launches_bf16_step (one bf16 serving chunk, one bf16 B=1 training step),
+phase 18 launches_host_tools (predict() on 512 tiles). The residual_tail_backward entry's
 library_chain_ms is cuDNN's chain through autograd at its shape, B=1.
 
 The line before the last is the kernels' JSON; the last line is
@@ -3588,6 +3603,177 @@ def phase_bf16(dev, smi):
     return chunk_launches, step_launches
 
 
+PROFILE_DIR = os.path.join(REPO, "out", "profile")  # --profile's trace (out/ is not committed)
+HOST_TILES = 512  # phase 18's predict() request (phase 12's model): 4 chunks
+RLE_MASKS = 18000  # the TGS test set's tile count: phase 18's encoder comparison
+PROFILE_STEPS = 2  # phase 18: B=1 eager steps under profile_to
+
+
+def dihedral_masks(n: int, seed: int) -> np.ndarray:
+    """(n, 101, 101) uint8 salt-like masks: synthetic tiles' masks in their 8 dihedral views."""
+    from plastic_unet_tpu_torch.data.synthetic import synthetic_tiles
+
+    base = (synthetic_tiles(-(-n // 8), size=101, seed=seed)[1][:, 0] > 0).astype(np.uint8)
+    views = [np.rot90(base, k, axes=(1, 2)) for k in range(4)]
+    views += [v[:, :, ::-1] for v in views]
+    return np.ascontiguousarray(np.concatenate(views)[:n])
+
+
+def phase_host_tools(dev, smi):
+    """Phase 18: the port's host tools. The native host library's status (built, loaded, or the compiler's
+    or loader's reason); the host seconds of ops.rle.encode over RLE_MASKS masks; where it loaded: predict()
+    on HOST_TILES tiles writes the same submission.csv bytes with the native and the numpy encoder, the native
+    RLE of the masks equals ops.rle.encode string for string (and its host seconds), the native PNG loader equals data.images.load_image within 1e-6, the
+    native IoU sweep equals ops.iou.iou_metric_batch within 1e-6. profile_to around PROFILE_STEPS B=1 eager
+    steps in trace("step") ranges writes a trace holding the ranges and B1's kernel. predict(visualize=True)
+    raises ImportError naming matplotlib where matplotlib is absent. Returns the launch counts of the
+    predict() request."""
+    from importlib.util import find_spec
+
+    from plastic_unet_tpu_torch.data.images import load_image
+    from plastic_unet_tpu_torch.data.synthetic import synthetic_split, synthetic_tiles
+    from plastic_unet_tpu_torch.eval.evaluate import predict_masks
+    from plastic_unet_tpu_torch.models.unet_res import UNetPRes
+    from plastic_unet_tpu_torch.ops import native, rle
+    from plastic_unet_tpu_torch.ops.iou import iou_metric_batch
+    from plastic_unet_tpu_torch.submit import inference
+    from plastic_unet_tpu_torch.submit.server import MaskPredictor
+    from plastic_unet_tpu_torch.train.loop import create_train_state, make_train_step
+    from plastic_unet_tpu_torch.utils.profiling import profile_to, trace
+
+    t_phase = time.time()
+    status = native.native_status()
+    loaded = native.load() is not None
+    print(f"[18] native host library (native/plasticnet_native.cc, g++ {' '.join(native.CXX_FLAGS)} "
+          f"{' '.join(native.LDLIBS)}): {status}", flush=True)
+    if not loaded:
+        import ctypes.util
+
+        print(f"[18] libpng's runtime library on this host: {ctypes.util.find_library('png')}", flush=True)
+
+    imgs, _ = synthetic_tiles(HOST_TILES, size=101, seed=78)
+    tiles = np.ascontiguousarray(imgs[:, 0, :, :, None])  # NHWC, phase 12's request
+    model = seeded_model(SERVE_NEURONS, "oja", 0).to(dev).eval()
+    probs = predict_masks(model, tiles[:B], device=dev)
+    thr = float(probs.median())  # about half the pixels set: long RLE strings
+    ids = [f"h{i:04d}" for i in range(HOST_TILES)]
+    rp = {"img_height": 101, "img_width": 101, "img_chan": 1, "mask_threshold": thr, "subm_file": "submission.csv"}
+    with tempfile.TemporaryDirectory() as tmp:
+        subs = {}
+        torch.cuda.synchronize()
+        reset_counts()
+        subs["native" if loaded else "numpy"] = inference.predict(
+            model, ids, tiles, dict(rp, out_dir=tmp), device=dev)
+        torch.cuda.synchronize()
+        counts = expect_launches(f"MAIN PATH (predict, {HOST_TILES} tiles -> submission.csv, "
+                                 f"{'native' if loaded else 'numpy'} RLE)",
+                                 scaled(chunk_counts(), HOST_TILES // B), phase=18)
+        if loaded:
+            real = inference.encode_batch
+            inference.encode_batch = lambda masks: [rle.encode(m) for m in masks]
+            try:
+                os.makedirs(os.path.join(tmp, "numpy"))
+                subs["numpy"] = inference.predict(model, ids, tiles, dict(rp, out_dir=os.path.join(tmp, "numpy")),
+                                                  device=dev)
+            finally:
+                inference.encode_batch = real
+            body = {k: open(v, "rb").read() for k, v in subs.items()}
+            check(body["native"] == body["numpy"], "submission.csv: the native encoder's bytes differ from numpy's")
+        lines = open(subs["numpy"], "rb").read().splitlines()
+        rles = [ln.split(b",", 1)[1] for ln in lines[1:]]
+        check(len(lines) == HOST_TILES + 1 and len(set(rles)) > HOST_TILES // 2,
+              "submission.csv: bad row count, or fewer than half the masks distinct")
+        print(f"[18] predict() on {HOST_TILES} tiles at threshold {thr:.6f}: submission.csv "
+              f"{sum(len(ln) + 1 for ln in lines)} bytes, "
+              + ("native == numpy encoder, byte for byte" if loaded else "numpy encoder (no native library)"),
+              flush=True)
+
+        masks = dihedral_masks(RLE_MASKS, seed=18)
+        t0 = time.perf_counter()
+        want = [rle.encode(m) for m in masks]
+        t_numpy = time.perf_counter() - t0
+        what = (f"RLE of {RLE_MASKS} 101x101 masks (salt-like, {int(masks.sum())} pixels set); host CPU time, not "
+                f"device time ({os.cpu_count()} cores): numpy {t_numpy:.4f} s")
+        if not loaded:
+            print(f"[18] {what}; card: {smi}", flush=True)
+        else:
+            t0 = time.perf_counter()
+            got = native.rle_encode_batch_native(masks)
+            t_native = time.perf_counter() - t0
+            check(got == want, f"native RLE of {RLE_MASKS} masks != ops.rle.encode "
+                  f"({sum(a != b for a, b in zip(got, want))} strings differ)")
+            print(f"[18] {what}, native {t_native:.4f} s ({t_numpy / t_native:.1f}x), native == numpy string for "
+                  f"string; card: {smi}", flush=True)
+
+            data = write_tgs_dir(os.path.join(tmp, "tgs"))
+            paths = sorted(os.path.join(data, sub, f) for sub in ("train/images", "train/masks", "test/images")
+                           for f in os.listdir(os.path.join(data, sub)))
+            from PIL import Image
+
+            rgb = os.path.join(tmp, "rgb.png")
+            Image.fromarray((np.random.default_rng(18).random((101, 101, 3)) * 255).astype(np.uint8)).save(rgb)
+            paths.append(rgb)
+            worst = 0.0
+            for h, w in ((101, 101), (128, 128)):
+                got = native.load_png_gray_batch_native(paths, h, w)
+                worst = max(worst, max(float(np.abs(g - load_image(p, (h, w))).max()) for g, p in zip(got, paths)))
+            check(worst <= 1e-6, f"native PNG loader vs load_image max|diff| {worst:.3g} > 1e-6")
+            print(f"[18] native PNG loader == load_image on {len(paths)} tiles (8-bit, 16-bit masks, RGB) at "
+                  f"101x101 and resized to 128x128: max|diff| {worst:.3g} (<= 1e-6)", flush=True)
+
+            _, xv, _, yv = synthetic_split(0, 64, size=101, seed=77, hard=True)
+            full = MaskPredictor(seeded_model(16, "oja", 0), threshold=0.5)
+            preds = full.predict_probs(xv[:, 0]).cpu().numpy()
+            thresholds = np.linspace(0.05, 0.95, 31).astype(np.float32)
+            got = native.iou_threshold_sweep_native(yv, preds, thresholds)
+            want = np.array([iou_metric_batch(yv, preds > t) for t in thresholds])
+            e = float(np.abs(got - want).max())
+            check(e <= 1e-6, f"native IoU sweep vs ops.iou max|diff| {e:.3g} > 1e-6")
+            print(f"[18] native IoU sweep == ops.iou.iou_metric_batch on the neurons=16 predictor's 64 "
+                  f"validation predictions, 31 thresholds: max|diff| {e:.3g} (<= 1e-6)", flush=True)
+
+        X, Y = train_stream(PROFILE_STEPS + 1, 1, seed=23)
+        X, Y = X.to(dev), Y.to(dev)
+        net = UNetPRes(neurons=16, nbf=101, rule="oja", dropout_ratio=0.0, generator=torch.Generator().manual_seed(3))
+        state = create_train_state(net, TRAIN_LR, TRAIN_GAMMA, 1e6, device=dev)
+        step = make_train_step()
+        step(state, (X[0], Y[0]))
+        torch.cuda.synchronize()
+        log_dir = os.path.join(tmp, "profile")
+        with profile_to(log_dir):
+            for i in range(1, PROFILE_STEPS + 1):
+                with trace("step", i=i):
+                    step(state, (X[i], Y[i]))
+        files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+        check(len(files) == 1, f"profile_to wrote {files}")
+        with open(os.path.join(log_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        ranges = [e for e in events if e.get("name") == "step" and e.get("cat") == "user_annotation"]
+        heads = [e for e in events if e.get("cat") == "kernel" and "plastic_head" in e.get("name", "")]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        check(len(ranges) == PROFILE_STEPS, f"profile_to's trace holds {len(ranges)} 'step' ranges")
+        check(len(heads) >= PROFILE_STEPS, f"profile_to's trace holds {len(heads)} B1 kernel events")
+        print(f"[18] profile_to over {PROFILE_STEPS} B=1 eager steps: {files[0]}, {len(events)} events, "
+              f"{len(ranges)} 'step' ranges, {len(kernels)} device kernels of which {len(heads)} B1 "
+              f"({(heads or [{'name': 'none'}])[0]['name'][:60]})", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if find_spec("matplotlib") is None:
+            try:
+                inference.predict(model, ids[:4], tiles[:4], dict(rp, out_dir=tmp), visualize=True, device=dev)
+            except ImportError as e:
+                check("matplotlib" in str(e) and not os.listdir(tmp),
+                      f"predict(visualize=True) raised {e!r}, not naming matplotlib, or wrote {os.listdir(tmp)}")
+                print(f"[18] no matplotlib on this host: predict(visualize=True) raises {e!r}", flush=True)
+            else:
+                check(False, "predict(visualize=True) ran without matplotlib")
+        else:
+            inference.predict(model, ids[:4], tiles[:4], dict(rp, out_dir=tmp), visualize=True, device=dev)
+            print("[18] matplotlib is installed: predict(visualize=True) drew 4 tiles", flush=True)
+    print(f"[18] phase 18 took {time.time() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def time_bare_epoch(dev):
     """Seconds of one TIMED_TRAIN-step epoch of make_epoch_fn alone (the CUDA graph step, the loss copies,
     no permutation, augmentation or driver), at cli.train's model, rate and dropout under TIMED_ARGS."""
@@ -3611,12 +3797,12 @@ def time_bare_epoch(dev):
 
 
 def profile_training_step(dev, steps: int = 5, compute_dtype=None):
-    """``--profile [bfloat16]``: the B=1 eager training step (in the compute dtype) under torch.profiler;
-    device time by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``--profile [bfloat16]``: the B=1 eager training step (in the compute dtype) under
+    utils.profiling.profile_to, each step a trace("step") range; device time by kernel name. The trace
+    (Chrome/TensorBoard JSON) is written under PROFILE_DIR."""
     from plastic_unet_tpu_torch.models.unet_res import UNetPRes
     from plastic_unet_tpu_torch.train.loop import create_train_state, make_train_step
+    from plastic_unet_tpu_torch.utils.profiling import profile_to, trace
 
     X, Y = train_stream(steps, 1, seed=23)
     X, Y = X.to(dev), Y.to(dev)
@@ -3626,10 +3812,11 @@ def profile_training_step(dev, steps: int = 5, compute_dtype=None):
     step = make_train_step()
     step(state, (X[0], Y[0]))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile_to(PROFILE_DIR) as prof:
         for i in range(steps):
-            step(state, (X[i], Y[i]))
-        torch.cuda.synchronize()
+            with trace("step", i=i):
+                step(state, (X[i], Y[i]))
+    print(f"[profile] trace written to {PROFILE_DIR}", flush=True)
     rows = [(e.key, e.device_time_total / steps, e.count / steps) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
             and not e.is_user_annotation]  # an annotation's span (Optimizer.step) repeats its kernels' time
@@ -3695,6 +3882,9 @@ def main() -> int:
     for entry in kernels:  # phase 17: the launches of one bf16 serving chunk and of one bf16 B=1 step
         entry["launches_bf16_chunk"] = bf16_chunk[entry.get("counter", entry["name"])]
         entry["launches_bf16_step"] = bf16_step[entry.get("counter", entry["name"])]
+    host_counts = phase_host_tools(dev, smi)
+    for entry in kernels:  # phase 18: the launches of predict() on HOST_TILES tiles
+        entry["launches_host_tools"] = host_counts[entry.get("counter", entry["name"])]
     listed = sorted(e["name"] for e in kernels)
     check(listed == sorted(KERNELS) and all(set(KERNEL_KEYS) <= set(e) for e in kernels),
           f"the kernels line lists {listed}, want every kernel {sorted(KERNELS)} with {KERNEL_KEYS}")

@@ -12,9 +12,9 @@ model). The JAX parser's flags plus ``--device`` (default CUDA).
 ``--trunk-pad`` must match how the model was trained. ``--devices N``
 shards the test prediction's chunks over N ranks under torchrun
 (``python -m torch.distributed.run --nproc-per-node N -m
-plastic_unet_tpu_torch.cli.infer --devices N ...``; rank 0 writes). Not
-ported yet, and raising when asked for: ``--visualize`` (ROADMAP.md, queue
-A item 7).
+plastic_unet_tpu_torch.cli.infer --devices N ...``; rank 0 writes).
+``--visualize`` draws each test tile beside its mask (matplotlib; see
+submit.inference.predict).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-g", "--gpu", action="store_true", dest="gpu", default=False,
                    help="accepted for reference compatibility; the device is --device")
     p.add_argument("--visualize", "-v", action="store_true", default=False,
-                   help="visualize the images as they are processed (not ported)")
+                   help="visualize the images as they are processed")
     p.add_argument("--save", "-s", action="store_true", default=False,
                    help="save the output masks as OUT/masks/<id>.png")
     p.add_argument("--mask-threshold", "-t", dest="mask_threshold", type=float,
@@ -70,8 +70,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.visualize:
-        raise ValueError("plastic_unet_tpu_torch.cli.infer does not have --visualize yet (ROADMAP.md, queue A item 7)")
     if args.devices <= 1:
         return _infer(args, args.device, None)
     import torch.distributed as dist
@@ -137,10 +135,11 @@ def _infer(args, device, mesh):
                 "mask_threshold": args.fixed_threshold,
                 "subm_file": "submission.csv",
             }
-            return predict(model, ids, images, run_params, save_masks=args.save, tta=tta, device=device, mesh=mesh)
+            return predict(model, ids, images, run_params, visualize=args.visualize, save_masks=args.save, tta=tta,
+                           device=device, mesh=mesh)
         return start_inference(model, ids, images, x_valid, y_valid, out_dir=args.out_dir, img_width=t_img_width,
-                               img_height=t_img_height, img_chan=t_img_chan, save_masks=args.save, tta=tta,
-                               debug=True, device=device, mesh=mesh)
+                               img_height=t_img_height, img_chan=t_img_chan, visualize=args.visualize,
+                               save_masks=args.save, tta=tta, debug=True, device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """TGS-Salt dataset loading with the reference's split (counterpart of
 plastic_unet_tpu.data.dataset; reference src/utils/data_set.py), without
-pandas or sklearn.
+sklearn.
 
   * train: train.csv's ids in file order (the ``csv`` module), the
     grayscale PNGs resized to (H, W), masks divided by 65535 (16-bit), salt
@@ -9,10 +9,12 @@ pandas or sklearn.
     (:func:`train_test_split`), index for index -> NCHW float arrays.
   * test: the tile ids of test/images in ``os.walk`` order, optionally
     truncated, and their images.
+  * the EDA frames (``return_frames``) and, with ``debug``, the coverage and
+    depth plots (viz.plots): pandas DataFrames joined with depths.csv, as
+    the JAX loader builds them; pandas is imported only for them.
 
-The EDA frames and plots of the JAX loader (``return_frames``, the
-coverage and depth plots, and with them the join with depths.csv) are not
-ported yet; ``debug=True`` prints the reference's mask spot-check.
+PNGs load through the native threaded loader (ops.native) where the library
+loaded, else through PIL (data.images.load_image), one file at a time.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import os
 import numpy as np
 
 from plastic_unet_tpu_torch.data.images import load_image
+from plastic_unet_tpu_torch.ops import native
 
 
 def cov_to_class(val: float) -> int:
@@ -40,7 +43,11 @@ def read_train_index(data_dir: str) -> list[str]:
 
 
 def _load_batch(paths: list[str], h: int, w: int) -> np.ndarray:
-    return np.stack([load_image(p, (h, w)) for p in paths])
+    """Grayscale PNGs (N, h, w) float64: the native loader where the library
+    loaded, else PIL (ops.native's fallback rule)."""
+    if native.load() is None:
+        return np.stack([load_image(p, (h, w)) for p in paths])
+    return native.load_png_gray_batch_native(paths, h, w)
 
 
 def _approximate_mode(class_counts: np.ndarray, n_draws: int, rng: np.random.RandomState) -> np.ndarray:
@@ -112,10 +119,16 @@ def train_test_split(*arrays, test_size: float = 0.2, stratify=None, random_stat
 
 
 def load_train_dataset(data_dir: str, img_width: int, img_height: int, img_chan: int, val_ratio: float = 0.2,
-                       debug: bool = False):
+                       debug: bool = False, return_frames: bool = False, show_plots: bool = True):
     """Load and split the train set: (x_train, x_valid, y_train, y_valid),
-    NCHW float arrays. ``debug=True`` prints the reference's mask
-    spot-check (data_set.py:51, positional row 10)."""
+    NCHW float arrays; with ``return_frames=True`` also (train_df, test_df),
+    the EDA frames of the JAX loader (:func:`eda_frames`).
+
+    ``debug=True`` prints the reference's mask spot-check (data_set.py:51,
+    positional row 10) and draws viz.plots.plot_coverage and plot_depth
+    (``show=show_plots``). Where matplotlib, seaborn or pandas is not
+    installed (the card's host) the plots are not drawn and a line says
+    so: ``debug`` is the CLIs' spot check, not a request for figures."""
     ids = read_train_index(data_dir)
     images = _load_batch([f"{data_dir}/train/images/{idx}.png" for idx in ids], img_height, img_width)
     masks = _load_batch([f"{data_dir}/train/masks/{idx}.png" for idx in ids], img_height, img_width) / 65535
@@ -123,10 +136,46 @@ def load_train_dataset(data_dir: str, img_width: int, img_height: int, img_chan:
     strata = [cov_to_class(c) for c in coverage]
     if debug and len(ids) > 10:
         print(masks[10])
-    # (the EDA coverage and depth plots are not ported yet: ROADMAP.md, queue A item 7)
+    plot = debug and _can_plot()
+    if debug and not plot:
+        print("matplotlib, seaborn or pandas is not installed: the coverage and depth plots were not drawn")
+    frames = eda_frames(data_dir, masks, coverage, strata) if return_frames or plot else None
+    if plot:
+        from plastic_unet_tpu_torch.viz.plots import plot_coverage, plot_depth
+
+        plot_coverage(frames[0], show=show_plots)
+        plot_depth(*frames, show=show_plots)
     x = np.array(images).reshape(-1, img_chan, img_height, img_width)
     y = np.array(masks).reshape(-1, 1, img_height, img_width)
-    return tuple(train_test_split(x, y, test_size=val_ratio, stratify=strata, random_state=42))
+    split = tuple(train_test_split(x, y, test_size=val_ratio, stratify=strata, random_state=42))
+    return split + frames if return_frames else split
+
+
+def _can_plot() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+        import pandas  # noqa: F401
+        import seaborn  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def eda_frames(data_dir: str, masks: np.ndarray, coverage: np.ndarray, strata: list) -> tuple:
+    """(train_df, test_df) as the JAX loader builds them (data_set.py:37-48):
+    train.csv's ids (index ``id``) joined with depths.csv (``z``), then the
+    ``masks``, ``coverage`` and ``coverage_class`` columns; test_df is the
+    depths rows whose ids are not in train.csv."""
+    import pandas as pd
+
+    train_df = pd.read_csv(os.path.join(data_dir, "train.csv"), index_col="id", usecols=[0])
+    depths_df = pd.read_csv(os.path.join(data_dir, "depths.csv"), index_col="id")
+    train_df = train_df.join(depths_df)
+    test_df = depths_df[~depths_df.index.isin(train_df.index)]
+    train_df["masks"] = list(masks)
+    train_df["coverage"] = coverage
+    train_df["coverage_class"] = strata
+    return train_df, test_df
 
 
 def load_test_dataset(data_dir: str, img_width: int, img_height: int, img_chan: int, partial: bool = False,

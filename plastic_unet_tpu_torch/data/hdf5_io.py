@@ -1,8 +1,9 @@
 """Offline HDF5 dataset build (counterpart of plastic_unet_tpu.data.hdf5_io;
 reference create_hdf5_data_set, src/utils/img_utils.py:26-69): walk
 train/images and train/masks, resize to (H, W, C) and write gzip/shuffle/
-fletcher32 datasets 'train/images' and 'train/masks'. h5py is imported
-inside the functions. The check plot is not ported yet.
+fletcher32 datasets 'train/images' and 'train/masks'; ``show_check_plot``
+draws viz.plots.plot_train_check of the loaded arrays first. h5py (and
+matplotlib for the plot) is imported inside the functions.
 """
 
 from __future__ import annotations
@@ -21,9 +22,6 @@ def create_hdf5_data_set(data_dir: str, out_file: str = "dataset.hdf5", im_width
                          im_chan: int = 3, show_check_plot: bool = False) -> str:
     import h5py
 
-    if show_check_plot:
-        raise NotImplementedError("create_hdf5_data_set: the check plot is not ported yet (ROADMAP.md, queue A item 7)")
-
     print("Getting and resizing train images and masks ... ")
     sys.stdout.flush()
 
@@ -36,6 +34,11 @@ def create_hdf5_data_set(data_dir: str, out_file: str = "dataset.hdf5", im_width
         mask = load_image(f"{data_dir}/train/masks/{id_}", (im_height, im_width))
         Y[n, ..., 0] = mask > 0
     print("Done!")
+
+    if show_check_plot:
+        from plastic_unet_tpu_torch.viz.plots import plot_train_check
+
+        plot_train_check(X, Y)
 
     out_path = os.path.join(data_dir, out_file)
     print("Creation of HDF5 dataset file at: %s" % out_path)

@@ -1,12 +1,14 @@
 """Run-length encoding for Kaggle TGS-Salt submissions (counterpart of
-plastic_unet_tpu.ops.rle), numpy only: column-major (Fortran) order,
-1-based starts, ``"start len start len ..."`` strings. The JAX package's
-native C++ batch encoder has no counterpart here yet.
+plastic_unet_tpu.ops.rle): column-major (Fortran) order,
+1-based starts, ``"start len start len ..."`` strings. :func:`encode_batch`
+takes the native C++ batch encoder (ops.native) where the library loaded.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from plastic_unet_tpu_torch.ops import native
 
 
 def encode(im: np.ndarray) -> str:
@@ -29,5 +31,10 @@ def rle_decode(rle: str, shape: tuple[int, int]) -> np.ndarray:
 
 
 def encode_batch(masks: np.ndarray) -> list[str]:
-    """Encode a batch of binary masks ``(N, H, W)``."""
-    return [encode(m) for m in np.asarray(masks)]
+    """Encode a batch of binary masks ``(N, H, W)``: the native threaded
+    encoder where the library loaded, else :func:`encode` per mask
+    (ops.native's fallback rule)."""
+    masks = np.asarray(masks)
+    if native.load() is None:
+        return [encode(m) for m in masks]
+    return native.rle_encode_batch_native(masks)

@@ -9,12 +9,10 @@ plastic_unet_tpu.submit.inference; reference infer.py).
     ``pred > threshold`` (float64-exact, see :func:`threshold_as_f32`),
     RLE-encoded, written as ``submission.csv`` (``id,rle_mask``) with the
     bytes the JAX package's pandas writer gives; optionally each mask as
-    ``out_dir/masks/<id>.png``.
+    ``out_dir/masks/<id>.png`` and, with ``visualize``, one
+    viz.plots.plot_image_mask figure a tile (matplotlib).
   * :func:`start_inference`: best-threshold search on validation, then
     :func:`predict`.
-
-The visual spot checks (``visualize``) are not ported yet (ROADMAP.md,
-queue A item 7).
 """
 
 from __future__ import annotations
@@ -101,11 +99,17 @@ def predict(model, ids: Sequence, images, run_params: dict, *, visualize: bool =
     reshaped to (N, img_height, img_width, img_chan). run_params carries the
     geometry, ``mask_threshold``, ``out_dir`` and ``subm_file``; ``tta``
     the views; ``save_masks`` also writes each binarized mask as
-    ``out_dir/masks/<id>.png``. Returns the CSV's path. ``mesh``: each chunk
-    split over the ranks; rank 0 writes the files while the others wait."""
+    ``out_dir/masks/<id>.png``; ``visualize`` draws each tile beside its
+    mask (viz.plots.plot_image_mask of the image stacked x3, as the JAX
+    package does), closing each figure after its ``show``; it raises
+    ImportError before any prediction where matplotlib is not installed.
+    Returns the CSV's path. ``mesh``: each chunk split over the ranks; rank 0
+    writes the files and draws while the others wait."""
     if visualize:
-        raise NotImplementedError("predict(visualize=True) needs viz/plots.py and matplotlib, which the port "
-                                  "does not have yet (ROADMAP.md, queue A item 7)")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise ImportError("predict(visualize=True) draws with matplotlib, which is not installed") from e
     X = np.asarray(images, dtype=np.float32).reshape(
         -1, run_params["img_height"], run_params["img_width"], run_params["img_chan"]
     )
@@ -115,6 +119,13 @@ def predict(model, ids: Sequence, images, run_params: dict, *, visualize: bool =
     masks = binarize(preds, run_params["mask_threshold"])
     subm_file = os.path.join(run_params["out_dir"], run_params["subm_file"])
     if mesh is None or dist.get_rank() == 0:
+        if visualize:
+            from plastic_unet_tpu_torch.viz.plots import _plt, plot_image_mask
+
+            plt = _plt()
+            for x, mask in zip(X, masks):
+                image = x.squeeze()
+                plt.close(plot_image_mask(np.dstack((image, image, image)), mask))
         if save_masks:
             mask_dir = os.path.join(run_params["out_dir"], "masks")
             os.makedirs(mask_dir, exist_ok=True)

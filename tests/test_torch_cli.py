@@ -8,6 +8,7 @@ options the port lacks raise."""
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -142,14 +143,18 @@ def test_cli_train_ported_flags_run(tmp_path, flags, attr, value):
         assert getattr(res.model, attr) == value
 
 
-def test_cli_infer_unported_flags_raise(trained, tgs_dir, tmp_path):
+def test_cli_infer_unported_flags_raise(trained, tgs_dir, tmp_path, monkeypatch):
     pth = str(trained[0] / "train_net.pth")
     base = ["-m", pth, "-i", tgs_dir, "-o", str(tmp_path), "--neurons", "2", "--device", "cpu"]
-    for flags, match in ((["--visualize"], "does not have"), (["--devices", "2"], "torchrun")):
-        with pytest.raises(ValueError, match=match):  # --devices is ported: it needs torchrun's ranks
-            tinfer.main(base + flags)
+    with pytest.raises(ValueError, match="torchrun"):  # --devices is ported: it needs torchrun's ranks
+        tinfer.main(base + ["--devices", "2"])
     with pytest.raises(ValueError, match="unknown TTA"):
         tinfer.main(base + ["--tta", "flip"])
+    # --visualize is ported (tests/test_torch_aux_cli.py); without matplotlib it raises, naming it
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "matplotlib", None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            tinfer.main(base + ["--visualize", "--fixed-threshold", "0.5"])
 
 
 def test_cli_infer_trunk_pad_matches_jax(trained, tgs_dir, tmp_path):

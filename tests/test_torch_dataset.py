@@ -6,6 +6,8 @@ equals the JAX loader on 8- and 16-bit PNGs, and the HDF5 dataset file
 round-trips."""
 
 import os
+import random
+import sys
 
 import numpy as np
 import pytest
@@ -66,6 +68,58 @@ def test_load_train_dataset_equals_jax(tgs_dir, capsys):
     capsys.readouterr()
     tds.load_train_dataset(tgs_dir, SIZE, SIZE, 1, debug=True)  # the mask spot-check, row 10
     assert capsys.readouterr().out.strip() != ""
+
+
+@pytest.mark.parametrize("debug", [False, True], ids=["frames", "frames_and_plots"])
+def test_load_train_dataset_frames_equal_jax(tgs_dir, debug):
+    """return_frames=True: the split, then JAX's train_df (train.csv's ids joined with depths.csv's z, then
+    masks, coverage, coverage_class) and test_df (the depths rows not in train.csv), by
+    pandas.testing.assert_frame_equal with the masks column compared array by array; debug=True draws
+    JAX's coverage and depth figures (show_plots=False)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import pandas as pd
+
+    from test_torch_viz import assert_same_figure
+
+    plt.close("all")
+    got = tds.load_train_dataset(tgs_dir, SIZE, SIZE, 1, debug=debug, return_frames=True, show_plots=False)
+    port_figs = [plt.figure(n) for n in plt.get_fignums()]
+    want = jds.load_train_dataset(tgs_dir, SIZE, SIZE, 1, debug=debug, return_frames=True, show_plots=False)
+    jax_figs = [plt.figure(n) for n in plt.get_fignums()][len(port_figs):]
+    assert len(got) == len(want) == 6
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, w)
+    (train_df, test_df), (jtrain_df, jtest_df) = got[4:], want[4:]
+    assert list(train_df.columns) == list(jtrain_df.columns) == ["z", "masks", "coverage", "coverage_class"]
+    pd.testing.assert_frame_equal(train_df.drop(columns="masks"), jtrain_df.drop(columns="masks"))
+    assert len(train_df.masks) == len(jtrain_df.masks) == N
+    for a, b in zip(train_df.masks, jtrain_df.masks):
+        np.testing.assert_array_equal(a, b)
+    pd.testing.assert_frame_equal(test_df, jtest_df)
+    assert list(test_df.index) == ["t0", "t1"]
+    assert len(port_figs) == len(jax_figs) == (2 if debug else 0)
+    for a, b in zip(port_figs, jax_figs):
+        assert_same_figure(a, b)
+    plt.close("all")
+
+
+def test_load_train_dataset_debug_without_matplotlib(tgs_dir, capsys, monkeypatch):
+    """debug=True on a host without matplotlib (the card's): the spot-check prints, the plots are not
+    drawn and a line says so; the split is the same, and return_frames still returns the frames."""
+    want = tds.load_train_dataset(tgs_dir, SIZE, SIZE, 1, return_frames=True)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    for frames in (False, True):
+        got = tds.load_train_dataset(tgs_dir, SIZE, SIZE, 1, debug=True, return_frames=frames)
+        assert "the coverage and depth plots were not drawn" in capsys.readouterr().out
+        assert len(got) == (6 if frames else 4)
+        for g, w in zip(got[:4], want[:4]):
+            np.testing.assert_array_equal(g, w)
+    assert list(got[4].columns) == list(want[4].columns)
+    np.testing.assert_array_equal(got[4].coverage, want[4].coverage)
+    assert got[5].equals(want[5])
 
 
 def test_load_test_dataset_equals_jax(tgs_dir):
@@ -165,5 +219,20 @@ def test_hdf5_dataset_round_trip(tmp_path):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert jh5.load_hdf5_data_set(got_path)[0].shape == (6, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="check plot"):
-        th5.create_hdf5_data_set(str(root), "x.hdf5", show_check_plot=True)
+    # the check plot: JAX's figure (the same draw from Python's global random) after loading
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    figs = []
+    for mod in (th5, jh5):
+        random.seed(11)
+        mod.create_hdf5_data_set(str(root), f"{mod.__name__.split('.')[0]}_check.hdf5", im_width=16, im_height=16,
+                                 im_chan=3, show_check_plot=True)
+        figs.append(plt.gcf())
+        plt.close(figs[-1])
+    (tf, jf) = figs
+    assert [a.get_title() for a in tf.axes] == [a.get_title() for a in jf.axes] == ["Image", "Mask"]
+    for ta, ja in zip(tf.axes, jf.axes):
+        np.testing.assert_array_equal(ta.get_images()[0].get_array(), ja.get_images()[0].get_array())

@@ -6,6 +6,8 @@ Probabilities within atol=1e-5, the tolerance of the port's model tests
 (tests/test_torch_unet_res.py): fp32 sums in another order."""
 
 import importlib
+import os
+import sys
 
 import numpy as np
 import pandas as pd
@@ -150,12 +152,16 @@ def test_predict_save_masks_png_bytes_match_jax(models, tmp_path):
     assert 0 < n_set < 4 * SIZE * SIZE
 
 
-def test_predict_visualize_raises(models, tmp_path):
+def test_predict_visualize_raises(models, tmp_path, monkeypatch):
+    """visualize=True without matplotlib raises ImportError naming it, before
+    any prediction or file (the figures themselves: tests/test_torch_viz.py)."""
     _, _, tm = models
     rp = {"out_dir": str(tmp_path), "img_height": SIZE, "img_width": SIZE, "img_chan": 1, "mask_threshold": 0.5,
           "subm_file": "s.csv"}
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
         tinf.predict(tm, ["a"], _images(1), rp, visualize=True, device="cpu")
+    assert not os.path.exists(tmp_path / "s.csv")
 
 
 @pytest.mark.parametrize("own_threshold", [False, True])
