@@ -1,0 +1,3 @@
+"""serve_unetp.host_issue_ms: portbench.readers.host_issue_ms in cell unetp-128.serve-r512 (moves serve_unetp_tiles_per_s)."""
+
+from portbench.readers import host_issue_ms as read  # noqa: F401
