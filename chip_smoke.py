@@ -86,10 +86,11 @@ is non-zero:
      B=1 run's tolerances.
   9. proof of path: per eager training step 1 head launch, 9 tail forwards
      (36 conv launches), 9 tail backwards (36 dgrad and 36 wgrad launches);
-     the graph run launches the same for 3 steps (2 warm-up steps and the
-     capture) and nothing in its replays. At lanes=128 (lane_step_counts):
+     the graph run counts the same for its 2 warm-up steps and each replay
+     (the capture's launches, counted at each replay by
+     utils.profiling.Capture.replayed). At lanes=128 (lane_step_counts):
      1 head, 9 tails (4 fused, 20 conv3x3), 9 tail backwards (4 fused, 20
-     dgrad, 20 wgrad), the graph run 3 steps of them.
+     dgrad, 20 wgrad), the graph run 2 + 4 steps of them.
   10. times: dgrad, wgrad and the tail backward at the five shapes, B=1 and
      B=128, with plain, bound and the library call (F.conv2d with flipped
      weights; aten.convolution_backward for weight and bias, also under
@@ -109,7 +110,7 @@ is non-zero:
      dispatch, and 2 epochs then a resume for 2 more, bit for bit (losses,
      parameters, validation, the dropout generator); the three artifacts
      read back (train_data.hdf5 where h5py is installed); cli.tuned_run to
-     submission.csv; the launch counts of the driver's run (warm-up, capture
+     submission.csv; the launch counts of the driver's run (warm-up, replays
      and validation chunks); the driver's time per epoch against the bare
      graph step of phase 10.
   12. the serving features at full width (UNetPRes neurons=16, nbf=101,
@@ -199,8 +200,8 @@ is non-zero:
      seeded, fp32 parity: the DP epoch (parallel.dp) == make_epoch_fn bit for
      bit, hebb and oja, 8 steps at lanes 1 and 4 at lanes 128, as a CUDA graph
      (the collective captured) and eager, with the launches of
-     lane_step_counts and one gradient all-reduce a step (all_reduce_mean's
-     count; the graph run 3 steps of them); torch.profiler on an eager DP
+     lane_step_counts and one gradient all-reduce a step (the counter
+     collective.all_reduce; the graph run 2 + a replay a step of them); torch.profiler on an eager DP
      step and on graph replays at lanes 128 (the all-reduce's host ops, NCCL's
      kernels and their device time); pmean at lanes 4 (two all-reduces a step,
      every lane the lanes' mean, losses within 5e-5 and the trace within 1e-4
@@ -237,7 +238,8 @@ is non-zero:
      data.images.load_image (1e-6) on write_tgs_dir's tiles, an RGB tile and
      a resize, the native IoU sweep equal to ops.iou (1e-6); profile_to
      around two B=1 eager steps in trace("step") ranges: the trace holds the
-     ranges and B1's kernel; predict(visualize=True) raises ImportError
+     ranges and B1's kernel, and the .spans.json beside it every kernel
+     launch's span; predict(visualize=True) raises ImportError
      naming matplotlib where it is not installed.
 
 In the kernels' JSON, ms / plain_ms / bound_ms / library_ms / max_abs_err
@@ -836,26 +838,31 @@ def phase_model(dev):
 
 # --------------------------------------------------------------------------- phases 4 and 5
 
-def counted() -> dict:
-    """name -> the wrapper that carries the launch count."""
-    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dgrad
-    from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad
-    from plastic_unet_tpu_torch.ops.plastic_head import plastic_head
-    from plastic_unet_tpu_torch.ops.residual_tail import (residual_tail, residual_tail_backward,
-                                                          residual_tail_backward_fused, residual_tail_fused)
-
-    fns = (plastic_head, residual_tail, residual_tail_fused, conv3x3, residual_tail_backward, conv3x3_dgrad,
-           conv3x3_wgrad, residual_tail_backward_fused)
-    return dict(zip(COUNTED, fns))
+COUNTERS = dict(zip(COUNTED, ("kernel.head.all", "kernel.tail_fwd.all", "kernel.tail_fwd.fused", "kernel.conv3x3.fwd",
+                               "kernel.tail_bwd.all", "kernel.conv3x3.dgrad", "kernel.wgrad.all",
+                               "kernel.tail_bwd.fused")))  # COUNTED's names -> the counters of utils.profiling
 
 
 def reset_counts():
-    for fn in counted().values():
-        fn.launches = 0
+    from plastic_unet_tpu_torch.utils import profiling
+
+    profiling.reset()
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counted().items()}
+    """The launches since the last reset_counts(), by COUNTED's names. A CUDA graph's launches count at
+    each replay (utils.profiling.Capture.replayed), not at its capture."""
+    from plastic_unet_tpu_torch.utils import profiling
+
+    c = profiling.counters()
+    return {name: c.get(key, 0) for name, key in COUNTERS.items()}
+
+
+def all_reduces() -> int:
+    """parallel.dp.all_reduce_mean's calls since the last reset_counts()."""
+    from plastic_unet_tpu_torch.utils import profiling
+
+    return profiling.counters().get("collective.all_reduce", 0)
 
 
 def expect_counts(label: str, chunks: int, neurons: int = 16) -> dict:
@@ -1436,20 +1443,20 @@ def phase_training(dev):
               f"losses {[round(v, 6) for v in losses.tolist()]}, max|diff| losses {e_loss:.3g}, parameters "
               f"{e_par:.3g}, trace {e_tr:.3g}; eta == 0.01", flush=True)
 
-        # The default on the card: the step captured into a CUDA graph. Its body runs three times
-        # (two warm-up steps and the capture); the replays go through no wrapper.
+        # The default on the card: the step captured into a CUDA graph. Its body runs twice (the
+        # warm-up steps) and is captured once; each replay counts the captured launches.
         reset_counts()
         g_state, g_losses = train_run(rule, dev, X, Y, graph=None)
         torch.cuda.synchronize()
         counts = read_counts()
-        want = {k: 3 * v for k, v in STEP_COUNTS.items()}
-        check(counts == want, f"{rule}: launches of the graph run {counts} != {want} (warm-up 2 + capture 1)")
+        want = {k: (TRAIN_STEPS + 2) * v for k, v in STEP_COUNTS.items()}
+        check(counts == want, f"{rule}: launches of the graph run {counts} != {want} (warm-up 2 + a replay a step)")
         check(bool(torch.equal(g_losses, losses)), f"{rule}: graph losses differ from the eager ones: "
               f"{(g_losses - losses).abs().max().item():.3g}")
         same = all(bool(torch.equal(a, b)) for a, b in zip(g_state.model.parameters(), state.model.parameters()))
         check(same and bool(torch.equal(g_state.hebb, state.hebb)), f"{rule}: graph parameters or trace differ")
         print(f"[8] neurons=16 {rule} B=1, the default path (CUDA graph): {TRAIN_STEPS} losses, final parameters and "
-              f"trace equal the eager ones bit for bit; the kernels were launched for 3 steps (2 warm-up + capture) "
+              f"trace equal the eager ones bit for bit; the kernels were counted for 2 warm-up steps and each replay "
               f"and by no replay", flush=True)
 
     # dropout 0.5: the graph step with a registered generator against the eager step from the same
@@ -1493,8 +1500,8 @@ def phase_training(dev):
     reset_counts()
     state, losses = train_run("oja", dev, Xl, Yl, graph=None, lanes=B)
     torch.cuda.synchronize()
-    check(read_counts() == scaled(per_step, 3), f"lanes={B}: launches of the graph run {read_counts()} != "
-          f"{scaled(per_step, 3)} (warm-up 2 + capture 1)")
+    check(read_counts() == scaled(per_step, 4 + 2), f"lanes={B}: launches of the graph run {read_counts()} != "
+          f"{scaled(per_step, 4 + 2)} (warm-up 2 + a replay a step)")
     check(bool(torch.isfinite(losses).all()) and tuple(state.hebb.shape) == (B, 101, 101)
           and bool(torch.isfinite(state.hebb).all()), f"lanes={B}: bad losses or trace")
     check(bool(torch.equal(losses, e_losses)) and bool(torch.equal(state.hebb, e_state.hebb)),
@@ -1792,15 +1799,14 @@ def phase_driver(dev, smi, graph_step_s):
                                                                "--epochs-per-dispatch", "2"])
         counts = read_counts()
         total_s = t_end - t0
-        # the graph is captured once (2 warm-up steps and the capture launch the kernels; replays go
-        # through no wrapper) and each of the 2 validations runs one 128-tile chunk
-        want = {k: 3 * v for k, v in STEP_COUNTS.items()}
+        # the graph is captured once (2 warm-up steps launch the kernels, and each of the 128 replays
+        # counts the captured launches) and each of the 2 validations runs one 128-tile chunk
+        want = {k: (2 + 128) * v for k, v in STEP_COUNTS.items()}
         for k, v in chunk_counts().items():
             want[k] += 2 * v
         check(counts == want, f"driver launches {counts} != {want}")
         print(f"[11] MAIN PATH (driver): cli.train neurons=16, 4 epochs of 32 tiles, dropout 0.5, shuffle, augment, "
-              f"2 epochs a dispatch: launches {counts} (2 warm-up steps + the graph capture + 2 validation chunks; "
-              f"the {len(k2.all_losses)} replayed steps launch through the graph)", flush=True)
+              f"2 epochs a dispatch: launches {counts} (2 warm-up steps + {len(k2.all_losses)} replays + 2 validation chunks)", flush=True)
         check(len(k2.all_losses) == 128 and bool(np.isfinite(k2.all_losses).all()), "driver: bad losses")
         check(len(k2.val_test_losses) == 2 and k2.state.step == 128, "driver: validations or step count")
 
@@ -2939,8 +2945,8 @@ def phase_other_families(dev, smi, name):
             if where == "graph":
                 torch.cuda.synchronize()
                 c = read_counts()
-                want = scaled(dict.fromkeys(COUNTED, 0) | {"plastic_head": 1}, 3)
-                check(c == want, f"UNetP {rule} graph: launches {c} != {want} (2 warm-up steps and the capture)")
+                want = scaled(dict.fromkeys(COUNTED, 0) | {"plastic_head": 1}, TRAIN_STEPS + 2)
+                check(c == want, f"UNetP {rule} graph: launches {c} != {want} (2 warm-up steps and a replay a step)")
             runs[where] = (state, losses.cpu())
         (cs, cl), (es, el), (gs, gl) = runs["cpu"], runs["eager"], runs["graph"]
         e_loss = float((el - cl).abs().max())
@@ -3163,7 +3169,6 @@ def phase_data_parallel(dev, smi, name):
     from plastic_unet_tpu_torch.train.loop import GraphTrainStep, create_train_state, make_train_step
 
     t_phase = time.time()
-    reduces = dp.all_reduce_mean
     Xp, Yp = train_stream(4, DP_PMEAN_LANES, seed=27)
     with tempfile.TemporaryDirectory() as tmp:
         # the reference of check 3: the CPU port's pmean run in a Gloo group of one rank
@@ -3191,14 +3196,13 @@ def phase_data_parallel(dev, smi, name):
                     for graph in (None, False):
                         ref_state, ref_losses = train_run(rule, dev, X, Y, graph=graph, lanes=lanes)
                         reset_counts()
-                        reduces.launches = 0
                         state, losses = train_run(rule, dev, X, Y, graph=graph, lanes=lanes, mesh=mesh)
                         torch.cuda.synchronize()
-                        runs = steps if graph is False else 3  # eager steps, or 2 warm-up steps + the capture
+                        runs = steps if graph is False else steps + 2  # eager steps, or 2 warm-up steps + the replays
                         counts = read_counts()
-                        check(counts == scaled(per_step, runs) and reduces.launches == runs,
+                        check(counts == scaled(per_step, runs) and all_reduces() == runs,
                               f"DP {rule} lanes={lanes} graph={graph}: launches {counts} != {scaled(per_step, runs)} "
-                              f"or {reduces.launches} all-reduces != {runs}")
+                              f"or {all_reduces()} all-reduces != {runs}")
                         check(bool(torch.equal(losses, ref_losses)) and same_state(state, ref_state),
                               f"DP {rule} lanes={lanes} graph={graph}: differs from make_epoch_fn: losses max|diff| "
                               f"{(losses - ref_losses).abs().max().item():.3g}")
@@ -3210,7 +3214,7 @@ def phase_data_parallel(dev, smi, name):
                           f"{per_step['plastic_head']} head, {per_step['residual_tail']} tails ({per_step['residual_tail_fused']} fused), "
                           f"{per_step['residual_tail_backward']} tail backwards "
                           f"({per_step['residual_tail_backward_fused']} fused) and 1 gradient all-reduce; the graph "
-                          f"run launches them for 3 steps", flush=True)
+                          f"run counts them for 2 warm-up steps and each replay", flush=True)
             print(f"[16] MAIN PATH (data parallel): launches per eager DP step, lanes={B}: "
                   f"{({k: v for k, v in dp_counts.items() if v})} and 1 all-reduce", flush=True)
 
@@ -3247,10 +3251,10 @@ def phase_data_parallel(dev, smi, name):
 
             # 3: pmean at lanes 4: every lane is the lanes' mean; the losses against the CPU port's Gloo run
             one_ref, _ = train_run("oja", dev, Xp[:1], Yp[:1], graph=False, lanes=DP_PMEAN_LANES)
-            reduces.launches = 0
+            reset_counts()
             one, _ = train_run("oja", dev, Xp[:1], Yp[:1], graph=False, lanes=DP_PMEAN_LANES, mesh=mesh,
                                trace_mode="pmean")
-            check(reduces.launches == 2, f"pmean: {reduces.launches} all-reduces in a step, want 2 (gradients, trace)")
+            check(all_reduces() == 2, f"pmean: {all_reduces()} all-reduces in a step, want 2 (gradients, trace)")
             check(bool(torch.equal(one.hebb, one_ref.hebb.mean(dim=0, keepdim=True).expand_as(one_ref.hebb))),
                   "pmean: the trace after a step is not the mean of the lanes' traces")
             state, losses = train_run("oja", dev, Xp, Yp, graph=None, lanes=DP_PMEAN_LANES, mesh=mesh,
@@ -3524,7 +3528,8 @@ def phase_bf16(dev, smi):
     reset_counts()
     g_state, g_losses = train_run("hebb", dev, Xs, Ys, graph=None, compute_dtype=bf16)
     torch.cuda.synchronize()
-    expect_launches("bf16 training as a CUDA graph (2 warm-up steps and the capture)", bf16_counts(3), 17)
+    expect_launches("bf16 training as a CUDA graph (2 warm-up steps and a replay a step)", bf16_counts(TRAIN_STEPS + 2),
+                    17)
     check(bool(torch.equal(g_losses, losses)) and same_state(g_state, state), "bf16 training: graph differs from eager")
     print(f"[17] bf16 training neurons=16 hebb B=1, {TRAIN_STEPS} steps: losses {[round(v, 6) for v in losses.tolist()]}"
           f", relative max|diff| against the CPU port in bf16 {rel:.3g} (bound {BF16_LOSS_RTOL}); the CUDA graph "
@@ -3753,9 +3758,15 @@ def phase_host_tools(dev, smi):
         kernels = [e for e in events if e.get("cat") == "kernel"]
         check(len(ranges) == PROFILE_STEPS, f"profile_to's trace holds {len(ranges)} 'step' ranges")
         check(len(heads) >= PROFILE_STEPS, f"profile_to's trace holds {len(heads)} B1 kernel events")
+        with open(os.path.join(log_dir, files[0].replace(".pt.trace.json", ".spans.json"))) as f:
+            spans = json.load(f)
+        launched = [r for r in spans["records"] if r["name"].startswith("port.kernel.")]
+        want = PROFILE_STEPS * sum(STEP_COUNTS[k] for k in ("plastic_head", "conv3x3", "conv3x3_dgrad", "conv3x3_wgrad"))
+        check(len(launched) == want and spans["counters"].get("kernel.head.all") == PROFILE_STEPS,
+              f"profile_to's spans hold {len(launched)} kernel launches (want {want}), counters {spans['counters']}")
         print(f"[18] profile_to over {PROFILE_STEPS} B=1 eager steps: {files[0]}, {len(events)} events, "
               f"{len(ranges)} 'step' ranges, {len(kernels)} device kernels of which {len(heads)} B1 "
-              f"({(heads or [{'name': 'none'}])[0]['name'][:60]})", flush=True)
+              f"({(heads or [{'name': 'none'}])[0]['name'][:60]}); beside it {len(launched)} kernel spans", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         if find_spec("matplotlib") is None:

@@ -29,12 +29,22 @@ from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.ops.iou import threshold_sweep
 from plastic_unet_tpu_torch.ops.losses import bce_probs
 from plastic_unet_tpu_torch.utils.precision import serving_numerics
+from plastic_unet_tpu_torch.utils.profiling import count, trace
 
 
 def _as_tensor(a, device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
+    """``a`` as float32 on ``device``, in a ``port.serve.stage_in`` span whose
+    ``bytes`` (added to the counter ``serve.bytes_in``) are those staged
+    from the host: those of a host array, 0 for a tensor already on that
+    kind of device."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        staged = a.numel() * a.element_size()
+    else:
+        staged = 0 if a.device.type == torch.device(device).type else a.numel() * a.element_size()
+    count("serve.bytes_in", staged)
+    with trace("port.serve.stage_in", bytes=staged):
         return a.to(device=device, dtype=torch.float32)
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
 
 
 def _padded(x: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -48,7 +58,8 @@ def predict_masks(model, X, *, chunk: int = 128, device=None, mesh=None) -> torc
     with zero traces, on ``device``. With a ``mesh`` every rank passes the
     same ``X``; rank r runs samples ``[r*c, (r+1)*c)`` of each chunk, c =
     chunk / world (``chunk % world`` must be 0), and every rank gets all
-    ``N`` masks."""
+    ``N`` masks. Each chunk is a ``port.serve.chunk`` span (utils.profiling)
+    with its ``rows`` and the ``padded`` rows added to fill it."""
     dev = resolve_device(device)
     world = 1 if mesh is None else mesh.size()
     if chunk % world:
@@ -62,13 +73,14 @@ def predict_masks(model, X, *, chunk: int = 128, device=None, mesh=None) -> torc
     with torch.inference_mode(), serving_numerics():
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            hebb = model.initial_zero_hebb(share, device=dev)
-            pred = model(_padded(X[lo:hi], chunk)[mine], hebb).activout
-            if mesh is not None:
-                parts = [torch.empty_like(pred) for _ in range(world)]
-                dist.all_gather(parts, pred)
-                pred = torch.cat(parts)
-            out[lo:hi] = pred[: hi - lo]
+            with trace("port.serve.chunk", rows=hi - lo, padded=chunk - (hi - lo)):
+                hebb = model.initial_zero_hebb(share, device=dev)
+                pred = model(_padded(X[lo:hi], chunk)[mine], hebb).activout
+                if mesh is not None:
+                    parts = [torch.empty_like(pred) for _ in range(world)]
+                    dist.all_gather(parts, pred)
+                    pred = torch.cat(parts)
+                out[lo:hi] = pred[: hi - lo]
     return out
 
 

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from plastic_unet_tpu_torch.ops import _build
 from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad
+from plastic_unet_tpu_torch.utils.profiling import count, trace
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"conv3x3_forward": [_V] * 8 + [_I] * 17 + [_V]}
@@ -253,7 +254,9 @@ def _launch(x, w_hwio, bias, residual, *, relu_in=False, relu_res=False, relu_ou
             raise ValueError(f"conv3x3: the plan {plan} is not one of these shapes ({p})")
     vec = cout % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (out, bias, residual, gate) if t is not None)
     lib = _build.library("conv3x3", _SIGNATURES)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), trace("port.kernel.conv3x3", b=b, h=h, w=w, cin=cin, cout=cout, flip=flip,
+                                            bias=bias is not None, res=residual is not None, gate=gate is not None,
+                                            in_gate=in_gate is not None, plan=p, dtype=x.dtype, kernels=1):
         code = lib.conv3x3_forward(
             _build.ptr(x), _build.ptr(in_gate), _build.ptr(w_hwio), _build.ptr(bias), _build.ptr(residual),
             _build.ptr(gate), _build.ptr(out), _build.ptr(masked),
@@ -275,7 +278,7 @@ def conv3x3(x, w_hwio, bias=None, residual=None, *, relu_in=False, relu_res=Fals
     if x.device.type != "cuda":
         raise RuntimeError(f"conv3x3: no kernel for device {x.device}")
     out, _ = _launch(x, w_hwio, bias, residual, plan=plan, **flags)
-    conv3x3.launches += 1
+    count("kernel.conv3x3.fwd")
     return out
 
 
@@ -290,7 +293,7 @@ def conv3x3_dgrad(d, w_hwio, residual=None, *, gate=None, in_gate=None, plan=Non
     if d.device.type != "cuda":
         raise RuntimeError(f"conv3x3_dgrad: no kernel for device {d.device}")
     res = _launch(d, w_hwio, None, residual, flip=True, gate=gate, in_gate=in_gate, plan=plan)
-    conv3x3_dgrad.launches += 1
+    count("kernel.conv3x3.dgrad")
     return res
 
 
@@ -317,7 +320,3 @@ def conv3x3_same(x, weight, bias):
     (the weights read tap-reversed) and ops.conv3x3_wgrad. CUDA tensors
     launch the kernels or raise; CPU tensors take their plain versions."""
     return _Conv3x3Same.apply(x, weight, bias)
-
-
-conv3x3.launches = 0
-conv3x3_dgrad.launches = 0

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from plastic_unet_tpu_torch.ops import _build
+from plastic_unet_tpu_torch.utils.profiling import count, trace
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"conv3x3_wgrad": [_V] * 6 + [_I] * 15 + [_V]}
@@ -149,15 +150,13 @@ def conv3x3_wgrad(x, d, *, relu_in=False, layout="hwio"):
         b_part = torch.empty((plan.chunks, cout), dtype=x.dtype, device=x.device)
     vec = cin % 4 == 0 and cout % 4 == 0 and x.data_ptr() % 16 == 0 and d.data_ptr() % 16 == 0
     lib = _build.library("conv3x3_wgrad", _SIGNATURES)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), trace("port.kernel.wgrad", b=b, h=h, w=w, cin=cin, cout=cout, relu_in=relu_in,
+                                            plan=plan, dtype=x.dtype, kernels=1 + (plan.chunks > 1)):
         code = lib.conv3x3_wgrad(
             _build.ptr(x), _build.ptr(d), _build.ptr(dw), _build.ptr(db), _build.ptr(w_part), _build.ptr(b_part),
             b, h, w, cin, cout, plan.ci_t, plan.co_t, plan.rows, plan.samples, plan.tiles, plan.chunks, plan.smem,
             int(vec), int(relu_in), int(layout == "oihw"), _build.stream_of(x),
         )
     _build.check(code, "conv3x3_wgrad")
-    conv3x3_wgrad.launches += 1
+    count("kernel.wgrad.all")
     return dw, db
-
-
-conv3x3_wgrad.launches = 0

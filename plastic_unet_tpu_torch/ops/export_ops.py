@@ -17,9 +17,9 @@ what the eager path calls, with a fake kernel that gives the output's shape:
 They are the only kernels the serving forward launches: each of its 9 tails
 a chunk is one launch of the fused tail kernel or four ``conv3x3`` launches,
 as ops.residual_tail.tail_plan routes its shape. Each op counts on its
-wrapper's counter (``plastic_head.launches``, ``residual_tail.launches`` and,
-inside the tail, ``residual_tail_fused.launches`` or ``conv3x3.launches``), as
-the eager path does. models.blocks and
+wrapper's counter of utils.profiling (``kernel.head.all``,
+``kernel.tail_fwd.all`` and, inside the tail, ``kernel.tail_fwd.fused`` or
+``kernel.conv3x3.fwd``), as the eager path does. models.blocks and
 models.unet_res call these ops only while ``torch.compiler.is_exporting()``
 is true, so the eager path, the CUDA-graph training step and their bits are
 unchanged. Importing this module registers the ops; a process that loads an

@@ -33,6 +33,7 @@ import torch
 
 from plastic_unet_tpu_torch.ops import _build
 from plastic_unet_tpu_torch.ops.plasticity import check_head_args, hebb_update, oja_update, plastic_head_logits
+from plastic_unet_tpu_torch.utils.profiling import count, trace
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"plastic_head_forward": [_V] * 8 + [_I] * 11 + [_V]}
@@ -176,7 +177,8 @@ def _forward(w, alpha, eta, activin, hebb, rule, alfa_type, plan):
     x, w_, a_, e_, h_ = ins
     activ, activout, new_hebb = (torch.empty_like(x) for _ in range(3))
     lib = _build.library("plastic_head", _SIGNATURES)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), trace("port.kernel.head", b=b, n=n, rule=rule, scalar_alpha=scalar_alpha, plan=p,
+                                            dtype=x.dtype, kernels=1):
         code = lib.plastic_head_forward(
             _build.ptr(x), _build.ptr(w_), _build.ptr(a_), _build.ptr(e_), _build.ptr(h_),
             _build.ptr(activ), _build.ptr(activout), _build.ptr(new_hebb),
@@ -184,7 +186,7 @@ def _forward(w, alpha, eta, activin, hebb, rule, alfa_type, plan):
             p.threads, p.smem, _build.stream_of(x),
         )
     _build.check(code, "plastic_head")
-    plastic_head.launches += 1
+    count("kernel.head.all")
     return activ, activout, new_hebb
 
 
@@ -229,6 +231,3 @@ def plastic_head(w, alpha, eta, activin, hebb, *, rule: str = "hebb", alfa_type:
     :func:`head_plan` of these shapes) forces a tile family."""
     check_head_args(rule, alfa_type)
     return _PlasticHead.apply(w, alpha, eta, activin, hebb, rule, alfa_type, plan)
-
-
-plastic_head.launches = 0

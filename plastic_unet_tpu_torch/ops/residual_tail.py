@@ -90,6 +90,7 @@ from plastic_unet_tpu_torch.ops.conv3x3 import (
     hwio,
 )
 from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, conv3x3_wgrad_plain
+from plastic_unet_tpu_torch.utils.profiling import count, trace
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"residual_tail_forward": [_V] * 13 + [_I] * 9 + [_V]}
@@ -307,7 +308,8 @@ def _launch_backward(g, x0, pre11, x1, pre21, out, ks):
     ws = torch.empty((p.workspace,), dtype=g.dtype, device=g.device)
     grads = [torch.empty(shape, dtype=g.dtype, device=g.device) for _ in range(4) for shape in ((c, c, 3, 3), (c,))]
     lib = _build.library("residual_tail_backward", _BWD_SIGNATURES)
-    with torch.cuda.device(g.device):
+    with torch.cuda.device(g.device), trace("port.kernel.tail_bwd", b=b, h=h, w=w, c=c, plan=p, dtype=g.dtype,
+                                            kernels=2):
         code = lib.residual_tail_backward(
             *(_build.ptr(t) for t in acts), *(_build.ptr(k) for k in reversed(ks)), _build.ptr(dx0),
             _build.ptr(ws), *(_build.ptr(t) for t in grads), b, h, w, c, p.bands, p.rows, p.px, p.threads, p.smem,
@@ -329,7 +331,7 @@ def residual_tail_backward_fused(g, x0, pre11, x1, pre21, out, k11, k12, k21, k2
     if g.device.type != "cuda":
         raise RuntimeError(f"residual_tail_backward_fused: no kernel for device {g.device}")
     res = _launch_backward(g, x0, pre11, x1, pre21, out, (k11, k12, k21, k22))
-    residual_tail_backward_fused.launches += 1
+    count("kernel.tail_bwd.fused")
     return res
 
 
@@ -347,7 +349,7 @@ def residual_tail_backward(g, x0, pre11, x1, pre21, out, k11, k12, k21, k22):
     else:
         res = residual_tail_backward_eight(*args)
     if g.device.type == "cuda":
-        residual_tail_backward.launches += 1
+        count("kernel.tail_bwd.all")
     return res
 
 
@@ -367,7 +369,8 @@ def _launch_fused(x0, ks, bs, keep):
     out = torch.empty_like(x0)
     kept = [torch.empty_like(x0) if keep else None for _ in range(3)]
     lib = _build.library("residual_tail", _SIGNATURES)
-    with torch.cuda.device(x0.device):
+    with torch.cuda.device(x0.device), trace("port.kernel.tail_fwd", b=b, h=h, w=w, c=c, keep=keep, plan=p,
+                                             dtype=x0.dtype, kernels=1):
         code = lib.residual_tail_forward(
             _build.ptr(x0), *(_build.ptr(t) for pair in zip(ks, bs) for t in pair), _build.ptr(out),
             *(_build.ptr(t) for t in kept), b, h, w, c, p.bands, p.rows, p.px, p.threads, p.smem,
@@ -395,7 +398,7 @@ def residual_tail_fused(x0, k11, b11, k12, b12, k21, b21, k22, b22, *, keep=Fals
     if x0.device.type != "cuda":
         raise RuntimeError(f"residual_tail_fused: no kernel for device {x0.device}")
     res = _launch_fused(x0, (k11, k12, k21, k22), (b11, b12, b21, b22), keep)
-    residual_tail_fused.launches += 1
+    count("kernel.tail_fwd.fused")
     return res
 
 
@@ -413,7 +416,7 @@ def _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22, keep=False):
     else:
         out, pre11, x1, pre21 = residual_tail_four(*args)
     if x0.device.type == "cuda":
-        residual_tail.launches += 1
+        count("kernel.tail_fwd.all")
     return out, (x0, pre11, x1, pre21), ks
 
 
@@ -447,9 +450,3 @@ def residual_tail_ranges(x0, w11, b11, w12, b12, w21, b21, w22, b22):
     calibration's ranges, read from what the same launches keep."""
     out, kept, _ = _launch_forward(x0, w11, b11, w12, b12, w21, b21, w22, b22, keep=True)
     return out, torch.stack([t.amax() for t in kept]).clamp_min(0.0)
-
-
-residual_tail.launches = 0
-residual_tail_fused.launches = 0
-residual_tail_backward.launches = 0
-residual_tail_backward_fused.launches = 0

@@ -36,19 +36,18 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from plastic_unet_tpu_torch.train.loop import TrainState, make_epoch_fn, make_multi_epoch_fn
+from plastic_unet_tpu_torch.utils.profiling import count
 
 TRACE_MODES = ("per_device", "pmean")
 
 
 def all_reduce_mean(t: torch.Tensor, world: int) -> torch.Tensor:
     """``t`` in place: its sum over the ranks divided by their count (the
-    JAX ``pmean``); counts its calls in ``all_reduce_mean.launches``."""
-    all_reduce_mean.launches += 1
+    JAX ``pmean``); counts its calls in the counter ``collective.all_reduce``
+    of utils.profiling."""
+    count("collective.all_reduce")
     dist.all_reduce(t)
     return t.div_(world)
-
-
-all_reduce_mean.launches = 0
 
 
 class MeshReducer:

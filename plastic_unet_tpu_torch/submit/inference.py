@@ -30,6 +30,7 @@ from plastic_unet_tpu_torch.data.images import save_mask_png
 from plastic_unet_tpu_torch.eval.evaluate import _as_tensor, predict_masks, score_model_best_iou
 from plastic_unet_tpu_torch.ops.augment import TTA_TRANSFORMS, tta_batched_apply, tta_merge
 from plastic_unet_tpu_torch.ops.rle import encode_batch
+from plastic_unet_tpu_torch.utils.profiling import count, trace
 
 
 def inference(model, img_data, *, device=None) -> np.ndarray:
@@ -76,10 +77,20 @@ def threshold_as_f32(t: float) -> np.float32:
     return t32
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as numpy, in a ``port.serve.to_host`` span whose ``bytes``
+    (added to the counter ``serve.bytes_out``) are its size. Its host time
+    includes the wait for the work that makes ``t``."""
+    nbytes = t.numel() * t.element_size()
+    count("serve.bytes_out", nbytes)
+    with trace("port.serve.to_host", bytes=nbytes):
+        return t.cpu().numpy()
+
+
 def binarize(preds: torch.Tensor, threshold: float) -> np.ndarray:
     """uint8 masks ``preds > threshold`` (float64-exact), fetched to the host."""
     t32 = torch.tensor(float(threshold_as_f32(threshold)), dtype=preds.dtype, device=preds.device)
-    return (preds > t32).to(torch.uint8).cpu().numpy()
+    return to_host((preds > t32).to(torch.uint8))
 
 
 def write_submission(path: str, ids: Sequence, rles: Sequence[str]) -> None:

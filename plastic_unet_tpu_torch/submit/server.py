@@ -13,7 +13,8 @@ from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.models.unet_classic import UNetP
 from plastic_unet_tpu_torch.models.unet_res import UNetPRes, resolve_compute_dtype
 from plastic_unet_tpu_torch.ops.rle import encode_batch
-from plastic_unet_tpu_torch.submit.inference import binarize, predict_masks_tta
+from plastic_unet_tpu_torch.submit.inference import binarize, predict_masks_tta, to_host
+from plastic_unet_tpu_torch.utils.profiling import trace
 from plastic_unet_tpu_torch.utils.torch_interop import load_pth
 
 
@@ -56,20 +57,30 @@ class MaskPredictor:
         self.predict(np.zeros((1, self.model.nbf, self.model.nbf), np.float32))
         return self
 
-    def predict_probs(self, images: np.ndarray) -> torch.Tensor:
-        """(N, H, W) or (N, H, W, 1) float -> (N, nbf, nbf) sigmoid masks on
-        the device, averaged over the predictor's TTA views."""
+    def _request(self, images):
+        """The ``port.serve.request`` span of one request (utils.profiling):
+        its spans (staging, chunks, the read-back) share its id."""
+        return trace("port.serve.request", tiles=len(images), views=len(self.tta))
+
+    def _probs(self, images: np.ndarray) -> torch.Tensor:
         x = np.asarray(images, np.float32)
         if x.ndim == 3:
             x = x[..., None]
         return predict_masks_tta(self.model, x, transforms=self.tta, chunk=self.chunk, device=self.device)
 
+    def predict_probs(self, images: np.ndarray) -> torch.Tensor:
+        """(N, H, W) or (N, H, W, 1) float -> (N, nbf, nbf) sigmoid masks on
+        the device, averaged over the predictor's TTA views."""
+        with self._request(images):
+            return self._probs(images)
+
     def predict(self, images: np.ndarray) -> np.ndarray:
         """Sigmoid masks as numpy, or boolean masks if a threshold is set."""
-        preds = self.predict_probs(images)
-        if self.threshold is not None:
-            return binarize(preds, self.threshold).astype(bool)
-        return preds.cpu().numpy()
+        with self._request(images):
+            preds = self._probs(images)
+            if self.threshold is not None:
+                return binarize(preds, self.threshold).astype(bool)
+            return to_host(preds)
 
     def predict_rle(self, images: np.ndarray, threshold: float | None = None) -> list[str]:
         """Predict and RLE-encode (submission-format strings). A predictor
@@ -82,4 +93,6 @@ class MaskPredictor:
         # binarized at self.threshold and the argument is not read.
         if self.threshold is not None:
             return encode_batch(self.predict(images).astype(np.uint8))
-        return encode_batch(binarize(self.predict_probs(images), thr))
+        with self._request(images):
+            masks = binarize(self._probs(images), thr)
+        return encode_batch(masks)

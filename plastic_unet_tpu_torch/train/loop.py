@@ -41,6 +41,7 @@ from plastic_unet_tpu_torch import resolve_device
 from plastic_unet_tpu_torch.ops.losses import bce_logits, bce_probs
 from plastic_unet_tpu_torch.train.optimizer import StepLR, adam_step_lr
 from plastic_unet_tpu_torch.utils.precision import training_numerics
+from plastic_unet_tpu_torch.utils.profiling import capture, trace
 
 LOSS_SPACES = ("logits", "probs")
 
@@ -135,7 +136,12 @@ class GraphTrainStep:
     (they are issued on NCCL's stream, which joins the capture through
     events): every rank runs the warm-up steps, the restore and the capture
     in lockstep, and each replay runs the collectives again. The warm-up's
-    first collective creates the communicator, which capture cannot."""
+    first collective creates the communicator, which capture cannot.
+
+    The capture's kernel spans and counter increments are kept by
+    ``self.capture`` (utils.profiling.capture); each replay adds the
+    increments to the counters, and a step of :func:`make_epoch_fn` names
+    the capture by its id."""
 
     def __init__(self, state: TrainState, batch_shape, mask_shape, *, loss_space: str = "logits", reducer=None):
         dev = state.hebb.device
@@ -158,7 +164,7 @@ class GraphTrainStep:
                 _step_body(state, loss_of, self.img, self.mask, reducer)
         torch.cuda.current_stream(dev).wait_stream(side)
         self._restore(kept)
-        with training_numerics(), torch.cuda.graph(self.graph):
+        with training_numerics(), capture() as self.capture, torch.cuda.graph(self.graph):
             self.loss = _step_body(state, loss_of, self.img, self.mask, reducer)
 
     def _tensors(self):
@@ -197,6 +203,7 @@ class GraphTrainStep:
         self.img.copy_(img)
         self.mask.copy_(mask.reshape(self.mask.shape))
         self.graph.replay()
+        self.capture.replayed()
         state.scheduler.step()
         state.step += 1
         return state, self.loss
@@ -217,7 +224,9 @@ def make_epoch_fn(*, loss_space: str = "logits", graph: bool | None = None, redu
     graph for a model on a CUDA device and the eager step on the CPU; asking
     for a graph on the CPU raises. reducer: the data-parallel collectives of
     the step (parallel.dp.make_dp_epoch_fn), in the eager step and the
-    graph alike."""
+    graph alike. Each epoch is a ``port.train.epoch`` span and each step a
+    ``port.train.step`` span (utils.profiling), with ``graph=`` the id of
+    the capture a replayed step runs."""
     eager_step = make_train_step(loss_space=loss_space, reducer=reducer)
     graphs: dict = {}
 
@@ -225,16 +234,20 @@ def make_epoch_fn(*, loss_space: str = "logits", graph: bool | None = None, redu
         dev = state.hebb.device
         if X.device != dev or Y.device != dev:
             raise ValueError(f"make_epoch_fn: the stream must be resident on {dev}, got {X.device} and {Y.device}")
-        step_fn = eager_step
+        step_fn, captured = eager_step, None
         if dev.type == "cuda" if graph is None else graph:
             key = (id(state), tuple(X.shape[1:]), tuple(Y.shape[1:]))  # the graph keeps its state alive, so the id holds
             if key not in graphs:
                 graphs[key] = GraphTrainStep(state, X.shape[1:], Y.shape[1:], loss_space=loss_space, reducer=reducer)
             step_fn = graphs[key]
+            captured = step_fn.capture.id
+        lanes = X.shape[1]
         losses = torch.empty((X.shape[0],), dtype=torch.float32, device=dev)
-        for s in range(X.shape[0]):
-            state, loss = step_fn(state, (X[s], Y[s]))
-            losses[s].copy_(loss)
+        with trace("port.train.epoch", lanes=lanes, steps=X.shape[0], graph=captured):
+            for s in range(X.shape[0]):
+                with trace("port.train.step", lanes=lanes, step=state.step, graph=captured):
+                    state, loss = step_fn(state, (X[s], Y[s]))
+                losses[s].copy_(loss)
         return state, losses
 
     return epoch

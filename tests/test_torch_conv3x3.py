@@ -16,6 +16,7 @@ from plastic_unet_tpu_torch.ops.conv3x3 import (NUM_SMS, SAMPLE_THREADS, SAMPLE_
                                                 conv3x3_dgrad, conv3x3_plan, hwio)
 from plastic_unet_tpu_torch.ops.conv3x3_wgrad import (ONE_CHUNK_PIXELS, TARGET_BLOCKS, _stage_bytes, conv3x3_wgrad,
                                                        wgrad_plan)
+from plastic_unet_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -48,11 +49,11 @@ def test_conv3x3_matches_pallas(hw, cin, cout, flags):
     w = (rng.standard_normal((cout, cin, 3, 3)) * 0.1).astype(np.float32)
     b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
     res = rng.standard_normal((2, hw, hw, cout)).astype(np.float32)
-    launches = conv3x3.launches
+    launches = counters().get("kernel.conv3x3.fwd", 0)
     got = conv3x3(torch.from_numpy(x), hwio(torch.from_numpy(w)), torch.from_numpy(b),
                   None if res_mode is None else torch.from_numpy(res),
                   relu_in=relu_in, relu_res=res_mode == "relu", relu_out=relu_out).numpy()
-    assert conv3x3.launches == launches  # CPU tensors never launch the kernel
+    assert counters().get("kernel.conv3x3.fwd", 0) == launches  # CPU tensors never launch the kernel
     for i in range(2):
         ref = _jax_ref(x[i], w, b, res[i], relu_in, res_mode, relu_out)
         np.testing.assert_allclose(got[i], ref, atol=1e-5)
@@ -97,11 +98,11 @@ def test_dgrad_matches_jax_vjp(hw, cin, cout, flags):
     in_gate = rng.standard_normal(d.shape).astype(np.float32)
     res = rng.standard_normal(x.shape).astype(np.float32)
     gate = rng.standard_normal(x.shape).astype(np.float32)
-    launches = conv3x3_dgrad.launches
+    launches = counters().get("kernel.conv3x3.dgrad", 0)
     got, masked = conv3x3_dgrad(
         torch.from_numpy(d), torch.from_numpy(w), torch.from_numpy(res) if use_res else None,
         gate=torch.from_numpy(gate) if use_gate else None, in_gate=torch.from_numpy(in_gate) if use_in_gate else None)
-    assert conv3x3_dgrad.launches == launches  # CPU tensors never launch the kernel
+    assert counters().get("kernel.conv3x3.dgrad", 0) == launches  # CPU tensors never launch the kernel
     d_eff = d * (in_gate > 0) if use_in_gate else d
     ref = _jax_conv_vjp(x, w, d_eff)[0]
     if use_res:
@@ -123,9 +124,9 @@ def test_wgrad_matches_jax_vjp(hw, cin, cout, layout, relu_in):
     x = rng.standard_normal((2, hw, hw, cin)).astype(np.float32)
     w = (rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32)
     d = rng.standard_normal((2, hw, hw, cout)).astype(np.float32)
-    launches = conv3x3_wgrad.launches
+    launches = counters().get("kernel.wgrad.all", 0)
     dw, db = conv3x3_wgrad(torch.from_numpy(x), torch.from_numpy(d), relu_in=relu_in, layout=layout)
-    assert conv3x3_wgrad.launches == launches
+    assert counters().get("kernel.wgrad.all", 0) == launches
     _, dw_ref, db_ref = _jax_conv_vjp(np.maximum(x, 0) if relu_in else x, w, d)
     if layout == "oihw":
         dw_ref = np.transpose(dw_ref, (3, 2, 0, 1))

@@ -11,15 +11,14 @@ import jax
 import jax.numpy as jnp
 
 from plastic_unet_tpu.ops.pallas_trunk import residual_tail_apply
-from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3
-from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_dgrad, conv3x3_plain, hwio
-from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad
+from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_plain, hwio
 from plastic_unet_tpu_torch.ops.residual_tail import (
     residual_tail,
     residual_tail_backward,
     residual_tail_backward_plain,
     residual_tail_plain,
 )
+from plastic_unet_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -47,9 +46,9 @@ def _torch_args(p):
 @pytest.mark.parametrize("h,w,c", [(13, 13, 16), (10, 11, 32), (5, 5, 128)])
 def test_tail_matches_pallas(h, w, c):
     x0, p = _make(h, w, c, seed=h * w + c)
-    launches = (residual_tail.launches, conv3x3.launches)
+    launches = tuple(counters().get(k, 0) for k in ("kernel.tail_fwd.all", "kernel.conv3x3.fwd"))
     got = residual_tail(torch.from_numpy(x0), *_torch_args(p)).numpy()
-    assert (residual_tail.launches, conv3x3.launches) == launches
+    assert tuple(counters().get(k, 0) for k in ("kernel.tail_fwd.all", "kernel.conv3x3.fwd")) == launches
     jp = {k: jnp.asarray(v) for k, v in p.items()}
     for i in range(2):
         ref = np.asarray(residual_tail_apply(jnp.asarray(x0[i]), jp, h, w, c))
@@ -89,11 +88,11 @@ def test_tail_function_grads_match_pallas(h, w, c):
     gp_ref = {k: refs[0][1][k] + refs[1][1][k] for k in refs[0][1]}
     tx = torch.from_numpy(x0).requires_grad_()
     args = [t.requires_grad_() for t in _torch_args(p)]
-    counts = (residual_tail_backward.launches, conv3x3_dgrad.launches, conv3x3_wgrad.launches)
+    counts = tuple(counters().get(k, 0) for k in ("kernel.tail_bwd.all", "kernel.conv3x3.dgrad", "kernel.wgrad.all"))
     out = residual_tail(tx, *args)
     assert out.grad_fn is not None
     (out * torch.from_numpy(ct)).sum().backward()
-    assert (residual_tail_backward.launches, conv3x3_dgrad.launches, conv3x3_wgrad.launches) == counts
+    assert tuple(counters().get(k, 0) for k in ("kernel.tail_bwd.all", "kernel.conv3x3.dgrad", "kernel.wgrad.all")) == counts
     for i in range(2):
         _close(tx.grad[i].numpy(), refs[i][0], "dx0")
     _check_param_grads([a.grad for a in args], gp_ref)

@@ -13,8 +13,7 @@ import jax
 import jax.numpy as jnp
 
 from plastic_unet_tpu.ops.pallas_trunk import residual_tail_apply
-from plastic_unet_tpu_torch.ops.conv3x3 import NUM_SMS, SMEM_MAX, SPLIT_MAX_KS, conv3x3_dgrad, conv3x3_plain, conv3x3_plan, hwio
-from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad
+from plastic_unet_tpu_torch.ops.conv3x3 import NUM_SMS, SMEM_MAX, SPLIT_MAX_KS, conv3x3_plain, conv3x3_plan, hwio
 from plastic_unet_tpu_torch.ops.residual_tail import (
     BWD_MIN_FILL,
     FUSED_TILING,
@@ -27,6 +26,7 @@ from plastic_unet_tpu_torch.ops.residual_tail import (
     residual_tail_backward_plain,
     tail_bwd_plan,
 )
+from plastic_unet_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -153,13 +153,13 @@ def test_cpu_tensors_launch_nothing_on_either_route():
     g = torch.from_numpy(np.random.default_rng(5).standard_normal(x0.shape).astype(np.float32))
     ws = args[0::2]
     ks = [hwio(t) for t in ws]
-    counters = (residual_tail_backward, residual_tail_backward_fused, conv3x3_dgrad, conv3x3_wgrad)
-    before = [f.launches for f in counters]
+    names = ("kernel.tail_bwd.all", "kernel.tail_bwd.fused", "kernel.conv3x3.dgrad", "kernel.wgrad.all")
+    before = [counters().get(k, 0) for k in names]
     ref = residual_tail_backward_plain(g, *saved, *ws)
     for fn in (residual_tail_backward, residual_tail_backward_fused, residual_tail_backward_eight):
         got = fn(g, *saved, *ks)
         assert len(got) == 9 and all(torch.equal(a, r) for a, r in zip(got, ref))
-    assert [f.launches for f in counters] == before
+    assert [counters().get(k, 0) for k in names] == before
 
 
 def _jax_grads(x0, p, ct, h, w, c):
@@ -187,10 +187,10 @@ def test_fused_route_grads_match_pallas(b, h, w, c):
     refs = [_jax_grads(x0[i], p, ct[i], h, w, c) for i in range(b)]
     tx = torch.from_numpy(x0).requires_grad_()
     leaves = [t.requires_grad_() for t in args]
-    counts = (residual_tail_backward.launches, residual_tail_backward_fused.launches)
+    counts = tuple(counters().get(k, 0) for k in ("kernel.tail_bwd.all", "kernel.tail_bwd.fused"))
     out = residual_tail(tx, *leaves)
     (out * torch.from_numpy(ct)).sum().backward()
-    assert (residual_tail_backward.launches, residual_tail_backward_fused.launches) == counts
+    assert tuple(counters().get(k, 0) for k in ("kernel.tail_bwd.all", "kernel.tail_bwd.fused")) == counts
     for i in range(b):
         _close(tx.grad[i].numpy(), refs[i][0], f"dx0[{i}]")
     for k, name in enumerate(NAMES):

@@ -11,7 +11,7 @@ import torch
 import jax.numpy as jnp
 
 from plastic_unet_tpu.ops.pallas_trunk import residual_tail_apply
-from plastic_unet_tpu_torch.ops.conv3x3 import NUM_SMS, SMEM_MAX, SPLIT_MAX_KS, conv3x3, conv3x3_plain, conv3x3_plan, hwio
+from plastic_unet_tpu_torch.ops.conv3x3 import NUM_SMS, SMEM_MAX, SPLIT_MAX_KS, conv3x3_plain, conv3x3_plan, hwio
 from plastic_unet_tpu_torch.ops.residual_tail import (
     FUSED_MIN_FILL,
     FUSED_TILING,
@@ -24,6 +24,7 @@ from plastic_unet_tpu_torch.ops.residual_tail import (
     residual_tail_ranges,
     tail_plan,
 )
+from plastic_unet_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -167,8 +168,8 @@ def test_cpu_tensors_launch_nothing():
     assert tail_plan(b, hw, hw, c).family == "fused"
     x0, _, args = _make(b, hw, hw, c, seed=3)
     x = torch.from_numpy(x0)
-    counters = (residual_tail, residual_tail_fused, conv3x3)
-    before = [f.launches for f in counters]
+    names = ("kernel.tail_fwd.all", "kernel.tail_fwd.fused", "kernel.conv3x3.fwd")
+    before = [counters().get(k, 0) for k in names]
     ref = residual_tail_plain(x, *args)
     with torch.no_grad():
         out = residual_tail(x, *args)
@@ -187,4 +188,4 @@ def test_cpu_tensors_launch_nothing():
     torch.testing.assert_close(fused[0], ref, rtol=0, atol=2e-5)
     kept = residual_tail_fused(x, ks[0], args[1], ks[1], args[3], ks[2], args[5], ks[3], args[7], keep=True)
     assert all(t is not None and t.shape == x.shape for t in kept[1:])
-    assert [f.launches for f in counters] == before == [0, 0, 0]
+    assert [counters().get(k, 0) for k in names] == before == [0, 0, 0]
