@@ -18,8 +18,9 @@ is non-zero:
      level shapes with every flag combination plus Cin != Cout cases (B=128
      takes the whole-sample tiles at 25^2, 12^2, 6^2; B=1 splits K across
      blocks from 50^2 down, each such case bit-identical over two runs), and
-     at CONV_EDGE_CASES in all three families, each bit-identical over two
-     runs; the residual tail at the five shapes; the fused tail
+     at CONV_EDGE_CASES (the 8 routed entry-conv shapes at B=1 and B=128
+     among them) in each of the three families that has a tiling for the
+     shape, each bit-identical over two runs; the residual tail at the five shapes; the fused tail
      (csrc/residual_tail.cu, tail_plan's "fused" route) forced at 101^2x16,
      50^2x32 and the checkpoint's 50^2x16 and 25^2x32, B=128, 3 and 37 (but
      where the four launches take the split family, whose bits are its own),
@@ -42,8 +43,9 @@ is non-zero:
      answers a 128-tile request (the main path of the launch counts).
   5. proof of path: the launch counters of every serving call match one
      plastic-head launch and 9 residual tails per chunk, each tail one fused
-     launch or four conv3x3 launches as tail_plan routes it (chunk_counts:
-     neurons=16 at B=128, 4 fused and 20 conv3x3).
+     launch or four conv3x3 launches as tail_plan routes it, and one conv3x3
+     launch for each entry conv models.blocks.EntryConv routes (chunk_counts:
+     neurons=16 at B=128, 4 fused and 20 + 8 conv3x3).
   6. times (CUDA events around each call while the device is kept busy,
      so host issue time is excluded; warm-up excluded; median of 20) at B=128
      and at B=1: each kernel, its plain version, its bound and the cuDNN
@@ -58,8 +60,8 @@ is non-zero:
   7. the backward kernels against their plain versions on the card, at the
      five level shapes, B=1 and B=128: the conv's input-gradient form with
      the four flag sets of the tail's reverse chain plus Cin != Cout cases
-     (the split cases at B=1 and CONV_EDGE_CASES in all three families
-     bit-identical over two runs, the masked input equal to the plain one),
+     (the split cases at B=1 and CONV_EDGE_CASES in every family with a
+     tiling bit-identical over two runs, the masked input equal to the plain one),
      the weight/bias gradient (ReLU on load on and off, both layouts, two
      runs bit-identical, and the error against a float64 run; also at
      WGRAD_EDGE_CASES, where its tiling could break), the whole
@@ -85,12 +87,13 @@ is non-zero:
      (fused_bwd_lanes), eager on the card against the CPU port within the
      B=1 run's tolerances.
   9. proof of path: per eager training step 1 head launch, 9 tail forwards
-     (36 conv launches), 9 tail backwards (36 dgrad and 36 wgrad launches);
+     (36 conv launches), 9 tail backwards (36 dgrad and 36 wgrad launches),
+     and 8 entry convs (a conv3x3, a dgrad and a wgrad launch each);
      the graph run counts the same for its 2 warm-up steps and each replay
      (the capture's launches, counted at each replay by
      utils.profiling.Capture.replayed). At lanes=128 (lane_step_counts):
      1 head, 9 tails (4 fused, 20 conv3x3), 9 tail backwards (4 fused, 20
-     dgrad, 20 wgrad), the graph run 2 + 4 steps of them.
+     dgrad, 20 wgrad), 8 entry convs, the graph run 2 + 4 steps of them.
   10. times: dgrad, wgrad and the tail backward at the five shapes, B=1 and
      B=128, with plain, bound and the library call (F.conv2d with flipped
      weights; aten.convolution_backward for weight and bias, also under
@@ -136,7 +139,7 @@ is non-zero:
      UNetPRes neurons=16, nbf=101 (seeded weights), loaded with the default
      device: the identity artifact at chunk 128 equal to the live
      predict_masks bit for bit on 512 tiles with chunk_counts() launches a
-     chunk (1 head, 9 tails: 4 fused, 20 conv3x3); the tta4 artifact at chunk 32 (B=128 in the
+     chunk (1 head, 9 tails: 4 fused, 20 conv3x3; 8 entry conv3x3); the tta4 artifact at chunk 32 (B=128 in the
      program) equal to the live folded tta4 bit for bit; the head and
      conv3x3 at B=1024 against their plain versions, the fused tail there
      equal to the four conv3x3 launches, and the tta8 artifact
@@ -154,7 +157,7 @@ is non-zero:
      from float64 than the eight launches', the NaN canary, and each
      one's time beside the other route, plain, cuDNN and the bound; then
      trunk_pad=128 with coord_conv: serving 512 tiles at chunk 128
-     (tiles/s, launches by route: 4 fused, 20 conv3x3 a chunk), the
+     (tiles/s, launches by route: 4 fused, 20 + 8 conv3x3 a chunk), the
      forward on 4 tiles against the CPU port (atol 1e-5 x max(1,
      max|ref|)), 8 B=1 steps, the CUDA graph == eager bit for bit, and a
      lanes=128 eager step beside the default model's in ms. remat_trunk:
@@ -313,9 +316,9 @@ TAILS_PER_CHUNK = {101: 2, 50: 2, 25: 2, 12: 2, 6: 1}  # a DownRes and an UpRes 
 HEAD_PER_CHUNK = 1
 COUNTED = ("plastic_head", "residual_tail", "residual_tail_fused", "conv3x3", "residual_tail_backward",
            "conv3x3_dgrad", "conv3x3_wgrad", "residual_tail_backward_fused")
-STEP_COUNTS = {"plastic_head": 1, "residual_tail": 9, "residual_tail_fused": 0, "conv3x3": 36,
-               "residual_tail_backward": 9, "conv3x3_dgrad": 36, "conv3x3_wgrad": 36,
-               "residual_tail_backward_fused": 0}  # per eager training step, B=1
+STEP_COUNTS = {"plastic_head": 1, "residual_tail": 9, "residual_tail_fused": 0, "conv3x3": 44,
+               "residual_tail_backward": 9, "conv3x3_dgrad": 44, "conv3x3_wgrad": 44,
+               "residual_tail_backward_fused": 0}  # per eager training step, B=1: 36 tail convs + 8 entry convs
 FUSED_TAIL_SHAPES = [(101, 16), (50, 32)]  # the levels tail_plan routes to csrc/residual_tail.cu at B=128
 FUSED_TAIL_BS = (B, 3, 37)  # phase 2: the fused tail == four launches, bit for bit, at these B
 FUSED_TAIL_CHECKS = FUSED_TAIL_SHAPES + [(50, 16), (25, 32)]  # and the epoch-225 checkpoint's (neurons=8) fused levels
@@ -328,10 +331,21 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                "bound_by", "library_ms")
 
 
+def entry_counts(neurons: int = 16) -> int:
+    """The trunks' entry convs that models.blocks.EntryConv runs on the
+    conv3x3 kernel in fp32: those whose Cin is a multiple of
+    ops.conv3x3.CK (8 of 9 at neurons=16, 7 at 8; never the stem's). Each
+    is one conv3x3 launch a forward, and one dgrad and one wgrad a backward."""
+    from plastic_unet_tpu_torch.ops.conv3x3 import CK
+
+    return sum(neurons * m % CK == 0 for m in (1, 2, 4, 8, 16, 8, 4, 2))
+
+
 def chunk_counts(neurons: int = 16, b: int = B, levels=LEVELS) -> dict:
-    """Forward launches of one UNetPRes chunk of b samples: 1 head and 9
+    """Forward launches of one UNetPRes chunk of b samples: 1 head, 9
     tails, each tail one launch of the fused kernel or four conv3x3
-    launches, as ops.residual_tail.tail_plan routes its shape. ``levels``:
+    launches, as ops.residual_tail.tail_plan routes its shape, and a conv3x3
+    launch for each routed entry conv (entry_counts). ``levels``:
     the track's sides (PAD_LEVELS for trunk_pad=128), TAILS_PER_CHUNK's
     counts in order."""
     from plastic_unet_tpu_torch.ops.residual_tail import tail_plan
@@ -340,14 +354,15 @@ def chunk_counts(neurons: int = 16, b: int = B, levels=LEVELS) -> dict:
                 if tail_plan(b, hw, hw, neurons * 2 ** i).family == "fused")
     tails = sum(TAILS_PER_CHUNK.values())
     return {"plastic_head": HEAD_PER_CHUNK, "residual_tail": tails, "residual_tail_fused": fused,
-            "conv3x3": 4 * (tails - fused)}
+            "conv3x3": 4 * (tails - fused) + entry_counts(neurons)}
 
 
 def lane_step_counts(lanes: int, neurons: int = 16, levels=LEVELS) -> dict:
     """Launches of one eager training step of ``lanes`` samples: the forward
-    of chunk_counts and 9 tail backwards, each one launch of the fused
+    of chunk_counts, 9 tail backwards, each one launch of the fused
     backward or four dgrad and four wgrad launches, as
-    ops.residual_tail.tail_bwd_plan routes its shape."""
+    ops.residual_tail.tail_bwd_plan routes its shape, and a dgrad and a
+    wgrad for each routed entry conv."""
     from plastic_unet_tpu_torch.ops.residual_tail import tail_bwd_plan
 
     counts = dict.fromkeys(COUNTED, 0)
@@ -355,8 +370,9 @@ def lane_step_counts(lanes: int, neurons: int = 16, levels=LEVELS) -> dict:
     fused = sum(n for i, (n, (hw, _)) in enumerate(zip(TAILS_PER_CHUNK.values(), levels))
                 if tail_bwd_plan(lanes, hw, hw, neurons * 2 ** i).family == "fused")
     tails = sum(TAILS_PER_CHUNK.values())
+    entries = entry_counts(neurons)
     counts.update({"residual_tail_backward": tails, "residual_tail_backward_fused": fused,
-                   "conv3x3_dgrad": 4 * (tails - fused), "conv3x3_wgrad": 4 * (tails - fused)})
+                   "conv3x3_dgrad": 4 * (tails - fused) + entries, "conv3x3_wgrad": 4 * (tails - fused) + entries})
     return counts
 
 
@@ -371,11 +387,28 @@ def fused_bwd_lanes(neurons: int = 16) -> int:
 def scaled(counts: dict, k: int) -> dict:
     return {name: k * v for name, v in counts.items()}
 TRAIN_STEPS, TRAIN_LR, TRAIN_GAMMA, TRAIN_STEP_SIZE = 8, 1e-3, 0.5, 3
+ENTRY_SHAPES = [(50, 16, 32), (25, 32, 64), (12, 64, 128), (6, 128, 256), (12, 256, 128), (25, 128, 64),
+                (50, 64, 32), (101, 32, 16)]  # (H=W, Cin, Cout) of the entry convs EntryConv routes at neurons=16
+ENTRY_CASES = [(b, hw, hw, cin, cout) for b in (1, B) for hw, cin, cout in ENTRY_SHAPES]
 WGRAD_EDGE_CASES = [(3, 13, 7, 40, 24), (5, 6, 6, 256, 256), (2, 101, 101, 16, 16), (8, 101, 101, 16, 16),
-                    (2, 9, 9, 6, 10)]  # (B, H, W, Cin, Cout) beyond the level shapes; phase 7
+                    (2, 9, 9, 6, 10)] + ENTRY_CASES  # (B, H, W, Cin, Cout) beyond the level shapes; phase 7
 CONV_EDGE_CASES = [(5, 6, 6, 256, 256), (3, 12, 12, 128, 128), (3, 13, 7, 40, 24), (2, 9, 9, 6, 10),
                    (1, 13, 7, 40, 24), (1, 9, 9, 48, 10),
-                   (2, 6, 6, 256, 256)]  # conv3x3 and dgrad in every family (tile, sample, split); phases 2 and 7
+                   (2, 6, 6, 256, 256)] + ENTRY_CASES  # conv3x3 and dgrad in every family that has a tiling; phases 2, 7
+
+
+def family_plans(b: int, h: int, w: int, cin: int, cout: int, flip: bool = False) -> list:
+    """conv3x3_plan forced to each family that has a tiling for these shapes (whole samples do not fit
+    past SAMPLE_PIXELS-sized images)."""
+    from plastic_unet_tpu_torch.ops.conv3x3 import FAMILIES, conv3x3_plan
+
+    plans = []
+    for family in FAMILIES:
+        try:
+            plans.append(conv3x3_plan(b, h, w, cin, cout, flip, family=family))
+        except ValueError:
+            pass
+    return plans
 
 
 def check(ok: bool, msg: str) -> None:
@@ -598,7 +631,7 @@ def phase_head(dev, errs):
 
 
 def phase_kernels(dev):
-    from plastic_unet_tpu_torch.ops.conv3x3 import FAMILIES, conv3x3, conv3x3_plain, conv3x3_plan, hwio
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, conv3x3_plan, hwio
     from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_plain
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -636,7 +669,7 @@ def phase_kernels(dev):
     # that fill no slice, the scalar paths (Cin, Cout not multiples of 4), ranges of one and two
     # slices; each in every family.
     for b, h, w_, cin, cout in CONV_EDGE_CASES:
-        plans = [conv3x3_plan(b, h, w_, cin, cout, family=f) for f in FAMILIES]
+        plans = family_plans(b, h, w_, cin, cout)
         for plan in plans:
             for relu_in, res_mode, relu_out in flag_sets:
                 xx = rnd(b, h, w_, cin)
@@ -970,7 +1003,7 @@ def tail_saved(args):
 
 
 def phase_backward_kernels(dev):
-    from plastic_unet_tpu_torch.ops.conv3x3 import FAMILIES, conv3x3_dgrad, conv3x3_dgrad_plain, conv3x3_plan, hwio
+    from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_dgrad, conv3x3_dgrad_plain, conv3x3_plan, hwio
     from plastic_unet_tpu_torch.ops.conv3x3_wgrad import conv3x3_wgrad, conv3x3_wgrad_plain, wgrad_plan
     from plastic_unet_tpu_torch.ops.residual_tail import (residual_tail_backward, residual_tail_backward_plain,
                                                           residual_tail_plain)
@@ -1038,8 +1071,8 @@ def phase_backward_kernels(dev):
         k = hwio(rnd(cout, cin, 3, 3, scale=1.0 / (3 * cin ** 0.5)))
         d, in_gate = rnd(b, h, w, cout), rnd(b, h, w, cout)
         res, gate = rnd(b, h, w, cin), rnd(b, h, w, cin)
-        for family in FAMILIES:
-            plan = conv3x3_plan(b, h, w, cout, cin, True, family=family)
+        for plan in family_plans(b, h, w, cout, cin, True):
+            family = plan.family
             for f_in, f_res, f_gate in dgrad_flags:
                 kw = dict(gate=gate if f_gate else None, in_gate=in_gate if f_in else None)
                 got, masked = conv3x3_dgrad(d, k, res if f_res else None, plan=plan, **kw)
@@ -1052,7 +1085,7 @@ def phase_backward_kernels(dev):
                     check(bool(torch.equal(masked, masked_ref)) and bool(torch.equal(masked, masked2)),
                           f"conv3x3_dgrad {what}: masked input differs")
                 n_dgrad += 1
-        print(f"[7] conv3x3_dgrad B={b} {h}x{w} {cout}->{cin}, 4 flag sets, every family "
+        print(f"[7] conv3x3_dgrad B={b} {h}x{w} {cout}->{cin}, 4 flag sets, every family with a tiling "
               f"({conv3x3_plan(b, h, w, cout, cin, True)[0]} by the plan), each bit-identical over two runs",
               flush=True)
     # Where the wgrad tiling can break: a non-square image with channels that fill no tile
@@ -2731,21 +2764,23 @@ def phase_model_options(dev, smi, name, serving_tiles_s):
         bn_counts = read_counts()
         check(bool(torch.isfinite(out.activ).all()) and all(g_ is None or bool(torch.isfinite(g_).all()) for g_ in grads),
               "batch_norm B=128: non-finite outputs or gradients")
-        # the 5 BN trunks: 4 convs each on conv3x3_same; the 4 UpRes middles (no BN) by the tail routes
+        # the 5 BN trunks: 4 convs each on conv3x3_same; the 4 UpRes middles (no BN) by the tail routes;
+        # the 8 routed entry convs on conv3x3_same
         ups = [(hw, 16 * 2 ** i) for i, (hw, _) in enumerate(LEVELS[:4])]
         fused_f = sum(tail_plan(B, hw, hw, c).family == "fused" for hw, c in ups)
         fused_b = sum(tail_bwd_plan(B, hw, hw, c).family == "fused" for hw, c in ups)
+        convs = 20 + entry_counts()
         want = dict.fromkeys(COUNTED, 0)
         want.update({"plastic_head": 1, "residual_tail": 4, "residual_tail_fused": fused_f,
-                     "conv3x3": 20 + 4 * (4 - fused_f), "residual_tail_backward": 4,
-                     "residual_tail_backward_fused": fused_b, "conv3x3_dgrad": 20 + 4 * (4 - fused_b),
-                     "conv3x3_wgrad": 20 + 4 * (4 - fused_b)})
+                     "conv3x3": convs + 4 * (4 - fused_f), "residual_tail_backward": 4,
+                     "residual_tail_backward_fused": fused_b, "conv3x3_dgrad": convs + 4 * (4 - fused_b),
+                     "conv3x3_wgrad": convs + 4 * (4 - fused_b)})
         check(bn_counts == want, f"batch_norm B={B}: launches {bn_counts} != {want}")
         counts["bn_step_b128"] = bn_counts
         bn_ms = time_ms(lambda: grads_of(bn, xb, bn.initial_zero_hebb(B, device=dev), yb), reps=5, warmup=1)[0]
     print(f"[14] batch_norm B={B}, train mode, forward and backward: finite, {bn_ms:.2f} ms (device time); launches "
-          f"{({k: v for k, v in bn_counts.items() if v})} (20 convs of the 5 BN trunks on conv3x3_same, the 4 UpRes "
-          f"middles by the tail routes)", flush=True)
+          f"{({k: v for k, v in bn_counts.items() if v})} (20 convs of the 5 BN trunks and 8 entry convs on "
+          f"conv3x3_same, the 4 UpRes middles by the tail routes)", flush=True)
     del loss, out, grads
     bn.load_state_dict(cpu.state_dict())  # the running statistics as they were: the same start on both sides
     x2, y2 = xb[:2].cpu(), yb[:2].cpu()

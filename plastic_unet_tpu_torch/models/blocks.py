@@ -5,14 +5,17 @@ Activations are contiguous NHWC ``(B, H, W, C)`` tensors. Attribute names
 reproduce the reference state_dict keys (``dconv.0``, ``dconv.1.conv.1.conv``,
 ``uconv.1.mconv.0`` ...), so reference ``.pth`` files load strictly.
 
-Where the JAX package leaves a conv to XLA, the port leaves it to cuDNN (in
-parity precision): each level's entry conv (Cin != C), the ConvTranspose and
-the 1x1 outconv, through a channels_last NCHW view of the NHWC tensor. The
-3x3 convs of every residual tail run through ops.residual_tail (forward:
+The 3x3 convs of every residual tail run through ops.residual_tail (forward:
 the fused tail kernel or the conv3x3 kernel, by its tail_plan; backward: the
 conv3x3 and conv3x3_wgrad kernels) (while torch.export traces the
-forward, through the same launches as the custom op of ops.export_ops); the
-cuDNN layers, pool, pad, cat and dropout differentiate through autograd.
+forward, through the same launches as the custom op of ops.export_ops).
+Each trunk's entry conv (Cin != C, :class:`EntryConv`) runs on the same
+kernels where Cin is a multiple of the kernel's 16-channel slice
+(ops.conv3x3.conv3x3_same: conv3x3 forward, conv3x3_dgrad and conv3x3_wgrad
+backward), and on cuDNN where it is not (the stem, Cin 1 or 3). The
+ConvTranspose and the 1x1 outconv stay on cuDNN (in parity precision),
+through a channels_last NCHW view of the NHWC tensor. The cuDNN layers,
+pool, pad, cat and dropout differentiate through autograd.
 Weights and biases take the torch-default init (U(-1/sqrt(fan_in),
 1/sqrt(fan_in))) from an explicit generator.
 
@@ -28,8 +31,9 @@ int8 serving (``quant``, the JAX blocks' QuantConv3 / QuantConvT3): the 49
 quantized convs (each level's entry conv, the four tail convs of each of
 the 9 trunks, the 4 ConvTransposes) carry a non-persistent ``amax`` buffer,
 None until calibrated and absent from the state_dict. ``quant="calib"``
-runs the ordinary forward (the tail on the conv3x3 kernel) and keeps the
-running max|input| of each; ``quant="int8"`` runs each of them through
+runs the ordinary forward (the tail and the routed entry convs on the
+conv3x3 kernel) and keeps the running max|input| of each;
+``quant="int8"`` runs each of them through
 ops.quant (the tail as its four int8 convs with the ReLUs and relu-skips).
 
 A ``dtype`` (the model's compute dtype, torch.bfloat16) runs the JAX
@@ -37,9 +41,10 @@ blocks' mixed precision (``nn.Conv(dtype=...)``): every trunk conv casts its
 input, weight and bias to it, rounds the conv to it, then adds the bias in
 it (:func:`conv_nhwc`), and the ReLUs, skips, pool, pad, concat and dropout
 run in it. The JAX blocks run the fused Pallas tail only at ``dtype`` None,
-so a bf16 trunk is cuDNN's bf16 convs throughout, the four tail convs too
-(:func:`_conv_tail`): the route is picked by the dtype, and the fp32 kernels
-of ops.residual_tail and ops.conv3x3 are not called (they raise for bf16).
+so a bf16 trunk is cuDNN's bf16 convs throughout, the entry conv and the
+four tail convs too (:func:`_conv_tail`): the route is picked by the dtype,
+and the fp32 kernels of ops.residual_tail and ops.conv3x3 are not called
+(they raise for bf16).
 BN computes its statistics and normalises in fp32 (:class:`BatchNorm`). The
 parameters stay fp32, and their gradients reach them through the casts.
 
@@ -58,10 +63,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from plastic_unet_tpu_torch.ops.conv3x3 import conv3x3_same
-from plastic_unet_tpu_torch.ops.export_ops import residual_tail_forward
+from plastic_unet_tpu_torch.ops.conv3x3 import CK, conv3x3_same
+from plastic_unet_tpu_torch.ops.export_ops import entry_conv_forward, residual_tail_forward
 from plastic_unet_tpu_torch.ops.quant import qconv3_same, qconvT3_s2_valid
 from plastic_unet_tpu_torch.ops.residual_tail import residual_tail, residual_tail_ranges
+from plastic_unet_tpu_torch.utils.profiling import count
 
 QUANT_MODES = ("", "calib", "int8")
 
@@ -95,16 +101,18 @@ def dense_strides(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride() == tuple(want) else x.as_strided(x.shape, want)
 
 
-def conv_nhwc(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+def conv_nhwc(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype | None = None,
+              forward=None) -> torch.Tensor:
     """An nn.Conv2d / nn.ConvTranspose2d on NHWC ``x`` through cuDNN's
     channels_last path; returns contiguous NHWC, as the kernels take it.
 
-    ``dtype`` (None: the module's fp32 call) is flax ``nn.Conv(dtype=...)``:
+    ``dtype`` (None: the module's fp32 call, or ``forward`` on the NCHW view
+    where given) is flax ``nn.Conv(dtype=...)``:
     the input, the weight and the bias cast to it, the conv without its bias
     rounded to it, then the bias added in it. A conv with a fused bias would
     add the bias before the one rounding (oneDNN does on the CPU)."""
     if dtype is None:
-        y = conv(dense_strides(x).permute(0, 3, 1, 2))
+        y = (forward or conv)(dense_strides(x).permute(0, 3, 1, 2))
         return y.permute(0, 2, 3, 1).contiguous()
     xd, w = dense_strides(x.to(dtype)).permute(0, 3, 1, 2), conv.weight.to(dtype)
     if isinstance(conv, nn.ConvTranspose2d):
@@ -180,17 +188,17 @@ def _calibrated(conv: nn.Module) -> torch.Tensor:
 
 
 def quant_conv_nhwc(conv: nn.Module, x: torch.Tensor, quant: str, int8_fn,
-                    dtype: torch.dtype | None = None) -> torch.Tensor:
+                    dtype: torch.dtype | None = None, forward=None) -> torch.Tensor:
     """:func:`conv_nhwc` of a quantizable conv in mode ``quant`` and compute
-    ``dtype``; ``int8_fn`` is its ops.quant form (qconv3_same or
-    qconvT3_s2_valid), which quantizes the fp32 weight, as the JAX
+    ``dtype`` (``forward`` as there); ``int8_fn`` is its ops.quant form
+    (qconv3_same or qconvT3_s2_valid), which quantizes the fp32 weight, as the JAX
     QuantConv3 does, and returns ``dtype``. calib records max|x| of the
     input as it arrives (bf16 activations in a bf16 trunk)."""
     if quant == "int8":
         return int8_fn(x, conv.weight, conv.bias, _calibrated(conv), dtype or torch.float32)
     if quant == "calib":
         _note_range(conv, x.abs().amax().to(torch.float32))
-    return conv_nhwc(conv, x, dtype)
+    return conv_nhwc(conv, x, dtype, forward)
 
 
 class BatchNorm(nn.Module):
@@ -267,10 +275,38 @@ class ResidualBlock(nn.Module):
         return c1.weight, c1.bias, c2.weight, c2.bias
 
 
+class EntryConv(nn.Conv2d):
+    """A trunk's entry conv, the reference's ``Conv2d(in, out, 3, padding=1)``
+    (same keys and init), called as a module on NHWC ``x`` with the trunk's
+    ``quant`` and ``dtype``. Its route is read off the input: in fp32 and
+    not int8, with Cin a multiple of the conv3x3 kernel's 16-channel slice
+    (ops.conv3x3.CK), ops.conv3x3.conv3x3_same (the plain versions on CPU
+    tensors; while torch.export traces, the same launch as the custom op of
+    ops.export_ops); else :func:`quant_conv_nhwc` (cuDNN, or ops.quant in
+    int8). A narrower Cin would fill the kernel's slice with zeros. Each
+    call counts ``kernel.entry.kernel`` or ``kernel.entry.library`` by the
+    route it took."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__(in_features, features, 3, padding=1)
+        quantizable(self)
+
+    def forward(self, x: torch.Tensor, quant: str = "", dtype: torch.dtype | None = None) -> torch.Tensor:
+        if quant == "int8" or dtype is not None or x.shape[-1] % CK:
+            count("kernel.entry.library")
+            return quant_conv_nhwc(self, x, quant, qconv3_same, dtype, super().forward)
+        count("kernel.entry.kernel")
+        if quant == "calib":
+            _note_range(self, x.abs().amax().to(torch.float32))
+        if torch.compiler.is_exporting():  # the same launch as a custom op torch.export can trace
+            return entry_conv_forward(x, self.weight, self.bias)
+        return conv3x3_same(x, self.weight, self.bias)
+
+
 def _trunk(in_features: int, features: int, batch_norm: bool = False) -> nn.ModuleList:
     """Sequential(Conv2d, residual_block, residual_block, ReLU) of down/middle."""
     return nn.ModuleList([
-        quantizable(nn.Conv2d(in_features, features, 3, padding=1)),
+        EntryConv(in_features, features),
         ResidualBlock(features, batch_norm),
         ResidualBlock(features, batch_norm),
         nn.ReLU(),
@@ -306,7 +342,7 @@ def _conv_tail(convs, x0: torch.Tensor, conv) -> torch.Tensor:
 
 def _trunk_forward(seq: nn.ModuleList, x: torch.Tensor, quant: str = "",
                    dtype: torch.dtype | None = None) -> torch.Tensor:
-    x = quant_conv_nhwc(seq[0], x, quant, qconv3_same, dtype)
+    x = seq[0](x, quant, dtype)
     if hasattr(seq[1], "bn"):
         return _bn_tail(seq[1:3], x, dtype)
     convs = seq[1].convs() + seq[2].convs()

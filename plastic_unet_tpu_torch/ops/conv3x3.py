@@ -35,7 +35,8 @@ outside autograd, like ops.conv3x3_wgrad: the differentiable entry points
 are ops.residual_tail.residual_tail, whose autograd.Function chains them,
 and :func:`conv3x3_same`, one conv with its bias (forward :func:`conv3x3`,
 backward :func:`conv3x3_dgrad` and ops.conv3x3_wgrad), which the
-batch-norm trunks of UNetPRes run conv by conv.
+batch-norm trunks of UNetPRes run conv by conv, and every trunk's entry
+conv whose Cin is a multiple of :data:`CK` (models.blocks.EntryConv).
 """
 
 from __future__ import annotations

@@ -97,7 +97,8 @@ def test_train_mode_gradients_match_jax():
 
 def test_bn_trunks_run_unfused_and_the_others_keep_the_tail(monkeypatch):
     """conv3x3_same takes the 4 convs of each of the 5 BN trunks (DownRes,
-    Middle); the 4 UpRes middles, BN-free, keep ops.residual_tail."""
+    Middle) and, at neurons=2, the 3 entry convs whose Cin is a multiple of
+    16 (16, 32, 16); the 4 UpRes middles, BN-free, keep ops.residual_tail."""
     seen = {"same": 0, "tail": 0}
     real_same, real_tail = tblocks.conv3x3_same, tblocks.residual_tail
 
@@ -113,7 +114,7 @@ def test_bn_trunks_run_unfused_and_the_others_keep_the_tail(monkeypatch):
     monkeypatch.setattr(tblocks, "residual_tail", tail)
     m = UNetPRes(neurons=2, nbf=SIZE, batch_norm=True, dropout_ratio=0.0).train()
     m(torch.randn(2, SIZE, SIZE, 1), m.initial_zero_hebb(2)).activ.sum().backward()
-    assert seen == {"same": 20, "tail": 4}
+    assert seen == {"same": 20 + 3, "tail": 4}
 
 
 @pytest.mark.parametrize("shape", [(2, 9, 7, 5, 6), (1, 16, 16, 2, 2), (3, 5, 5, 8, 3)])

@@ -203,13 +203,15 @@ def test_int8_artifact_exact(models, tmp_path):
 
 
 def test_program_calls_the_kernels_as_custom_ops(artifacts):
-    """The program launches the serving kernels through the two custom ops:
-    one head and 9 residual tails a forward; with tta4 still one forward."""
+    """The program launches the serving kernels through the three custom ops:
+    one head, 9 residual tails and the 3 entry convs whose Cin is a multiple
+    of 16 at neurons=2 (16, 32, 16) a forward; with tta4 still one forward."""
     for name in ("plain", "tta4"):
         program = torch.export.load(os.path.join(artifacts[name], "forward.cpu.pt2"))
         targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
         assert targets.count("plastic_unet_tpu_torch.plastic_head_forward.default") == 1, name
         assert targets.count("plastic_unet_tpu_torch.residual_tail_forward.default") == 9, name
+        assert targets.count("plastic_unet_tpu_torch.entry_conv_forward.default") == 3, name
 
 
 def test_meta_has_the_jax_keys(models, artifacts, tmp_path):

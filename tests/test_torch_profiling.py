@@ -18,6 +18,12 @@ from plastic_unet_tpu_torch.utils import profiling as tprof
 NBF = 21  # UNetPRes at neurons=2 on 21-px tiles: a request of 300 tiles is under a second here
 
 
+def entry(forwards: int) -> dict:
+    """The entry convs' route counters of ``forwards`` forwards of UNetPRes at
+    neurons=2: Cin 16, 32 and 16 on the kernel, the other six on cuDNN."""
+    return {"kernel.entry.kernel": 3 * forwards, "kernel.entry.library": 6 * forwards}
+
+
 @pytest.fixture(autouse=True)
 def fresh():
     tprof.reset()
@@ -52,7 +58,7 @@ def test_trace_off_profile_is_a_flag_read(monkeypatch):
     x = _tiles(20)
     out = _predictor().predict(x)
     assert tprof.records() == [] and tprof.dropped() == 0
-    assert tprof.counters() == {"serve.bytes_in": x.nbytes, "serve.bytes_out": out.nbytes}
+    assert tprof.counters() == {"serve.bytes_in": x.nbytes, "serve.bytes_out": out.nbytes} | entry(1)
 
 
 @pytest.mark.parametrize("threshold", [None, 0.5])
@@ -74,7 +80,7 @@ def test_request_spans_nest_and_share_the_request_id(threshold):
     assert recs[1]["attrs"]["bytes"] == x.nbytes and recs[-1]["attrs"]["bytes"] == out.nbytes
     assert out.dtype == (np.float32 if threshold is None else bool)
     assert tprof.counters() == {"serve.bytes_in": x.nbytes, "serve.bytes_out": 300 * NBF * NBF * (
-        4 if threshold is None else 1)}
+        4 if threshold is None else 1)} | entry(3)
 
 
 def test_records_are_on_the_profilers_clock():
@@ -170,7 +176,7 @@ def test_graph_train_step_replays_count_what_ran(monkeypatch):
     X, Y = torch.rand(3, 1, NBF, NBF, 1), (torch.rand(3, 1, NBF, NBF) > 0.5).float()
     with profile():
         state, losses = loop.make_epoch_fn(graph=True)(state, X, Y)
-    assert tprof.counters() == {"kernel.head.all": 2 + 3}
+    assert tprof.counters() == {"kernel.head.all": 2 + 3} | entry(3)  # the fake replays run the body eagerly
     recs = tprof.records()
     epoch = next(r for r in recs if r["name"] == "port.train.epoch")
     steps = [r for r in recs if r["name"] == "port.train.step"]
@@ -247,6 +253,6 @@ def test_profile_to_writes_the_regions_records_beside_the_trace(tmp_path):
         spans = json.load(f)
     names = [r["name"] for r in spans["records"]]
     assert "port.before" not in names and names.count("port.serve.chunk") == 1 and "port.train.step" in names
-    assert spans["counters"] == {"serve.bytes_in": x.nbytes, "serve.bytes_out": out.nbytes, "kernel.head.all": 1}
+    assert spans["counters"] == {"serve.bytes_in": x.nbytes, "serve.bytes_out": out.nbytes, "kernel.head.all": 1} | entry(1)
     assert spans["dropped"] == 0
     assert [r["name"] for r in spans["captures"][str(cap.id)]] == ["port.kernel.head"]
