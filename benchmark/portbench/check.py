@@ -72,7 +72,7 @@ def train_numbers(prog: dict, ref: dict) -> dict:
 
 
 def mask_gap(served: list, reference: list) -> float:
-    """max |a - b| over matching (N, nbf, nbf) arrays; a missing or
+    """max |a - b| over matching (N, H, W) arrays; a missing or
     non-finite answer reads infinite."""
     worst = 0.0
     for a, b in zip(served, reference):

@@ -28,7 +28,7 @@ import torch
 from portbench import check, tracing
 from portbench.tiles import make_generator, synthetic_tiles
 from portbench.tracing import free_cache, note, peak_bytes, sync
-from portbench.weights import build_port_model, build_reference, make_state_dict
+from portbench.weights import arch_file, build_port_model, build_reference, make_state_dict
 
 DATA_STREAM, OFFSET_STREAM, SAMPLE_STREAM = 0, 3, 4
 
@@ -57,19 +57,20 @@ class Reservoir:
 
 
 def reference_masks(cell, sd: dict, tiles: list, device, tf32: bool = False, chunk: int = 128) -> list:
-    """The plain reference's masks (zero trace, eval) of each (N, H, W) array, on the host."""
+    """The plain reference's masks (eval, each chunk from the arch's initial
+    state: a plastic model's zero trace) of each (N, H, W) array, on the host."""
     from reference.common import numerics
 
     out = []
     with numerics(tf32), torch.no_grad():
         ref = build_reference(cell.config, sd, device).eval()
+        initial_state = arch_file(cell.config["arch"]).initial_state
         for arr in tiles:
             x = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
             parts = []
             for lo in range(0, x.shape[0], chunk):
                 xb = x[lo:lo + chunk, None]
-                hebb = torch.zeros((xb.shape[0], ref.nbf, ref.nbf), device=device)
-                parts.append(ref(xb, hebb)[1])
+                parts.append(ref(xb, initial_state(ref, xb.shape[0], device))[1])
             out.append(torch.cat(parts).cpu().numpy())
     return out
 
@@ -100,14 +101,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float) ->
     from plastic_unet_tpu_torch.utils.precision import matmul_precision
 
     wl = cell.workload
-    r, chunk = wl["request_tiles"], wl["chunk"]
+    r, chunk, size = wl["request_tiles"], wl["chunk"], cell.config["image_size"]
     out = {"counters": {"chunk": chunk, "request_tiles": r}}
     offsets = np.random.default_rng([int(seed) % (2 ** 63), OFFSET_STREAM])
     kept = Reservoir(wl["check_requests"], seed)
     latencies, failed = [], 0
     with matmul_precision(cell.config["precision"]):
         pool, sd, predictor = setup(cell, seed, device, t_start)
-        nbf = predictor.model.nbf
         sync(device)
         note(t_start, "warm requests answered: set-up ends")
         out["setup_s"] = time.perf_counter() - t_start
@@ -125,7 +125,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float) ->
                     traceback.print_exc()
                 return
             latencies.append(time.perf_counter() - t)
-            if masks.shape != (r, nbf, nbf):  # the values are judged on the sample after the window
+            if masks.shape != (r, size, size):  # the values are judged on the sample after the window
                 failed += 1
             kept.offer((off, masks))
 

@@ -1,10 +1,12 @@
 """What one cell is: its entry in ``BENCHMARK.json``, its configuration file
 (``configs/<config>.json``), its traffic file (``workloads/<cell>.json``),
 the per-layer metric readers that apply to it (``metrics/<metric>.py``) and
-the FLOP counts of its architecture (``flops/<arch>.py``).
+the FLOP counts of its architecture (``flops/<arch>.py``); the rest of the
+architecture is its file ``reference/<arch>.py``, read by ``weights.py``.
 
-Everything is found by name, so a new configuration, traffic mix or metric
-is a new file and a new entry in ``BENCHMARK.json``; no file here changes.
+Everything is found by name, so a new configuration, traffic mix, metric or
+architecture is new files and new entries in ``BENCHMARK.json``; no file
+here changes.
 """
 
 from __future__ import annotations

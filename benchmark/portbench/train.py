@@ -25,7 +25,7 @@ import torch
 from portbench import check, tracing
 from portbench.tiles import make_generator, synthetic_tiles
 from portbench.tracing import free_cache, note, peak_bytes, sync
-from portbench.weights import build_port_model, build_reference, make_state_dict
+from portbench.weights import arch_file, build_port_model, build_reference, make_state_dict
 
 DATA_STREAM, DROPOUT_STREAM = 0, 2
 BETA1 = 0.9
@@ -89,33 +89,35 @@ class Program:
 
 def reference_steps(cell, sd: dict, x, y, seed: int, calls: list, device, tf32: bool = False) -> dict:
     """The plain reference over the checked steps: the same weights, rows,
-    lanes and dropout seed, its trace restarted where each call starts."""
+    lanes and dropout seed, its state (a plastic model's trace) restarted
+    where each call starts."""
     from reference.common import Adam, bce_logits, numerics
 
     tc, lanes = cell.config["train"], cell.workload["lanes"]
     with numerics(tf32):
         ref = build_reference(cell.config, sd, device).train()
+        initial_state = arch_file(cell.config["arch"]).initial_state
         names = [k for k, _ in ref.named_parameters()]
         opt = Adam([p for _, p in ref.named_parameters()], tc["lr"])
         gen = make_generator(seed, DROPOUT_STREAM, device)
         X, Y = lanes_of(x, lanes), lanes_of(y, lanes)
         starts = {sum(calls[:i]) for i in range(len(calls))}
         losses, grad_steps = [], []
-        hebb = None
+        state = None
         for s in range(sum(calls)):
             if s in starts:
-                hebb = torch.zeros((lanes, ref.nbf, ref.nbf), device=device)
+                state = initial_state(ref, lanes, device)
             opt.lr = tc["lr"] * tc["gamma"] ** (s // max(int(tc["step_size"]), 1))
             for p in ref.parameters():
                 p.grad = None
-            activ, _, new_hebb = ref(X[s].permute(0, 3, 1, 2).contiguous(), hebb, generator=gen)
+            activ, _, new_state = ref(X[s].permute(0, 3, 1, 2).contiguous(), state, generator=gen)
             if tc["loss_space"] != "logits":
                 raise ValueError("the reference trains on the logits' loss only")
             loss = bce_logits(activ, Y[s])
             loss.backward()
             grad_steps.append(check.leaf_norms({k: p.grad for k, p in ref.named_parameters() if p.grad is not None}))
             opt.step()
-            hebb = new_hebb.detach()
+            state = None if new_state is None else new_state.detach()
             losses.append(float(loss.detach()))
         change = check.leaf_norms({k: p.detach() - sd[k] for k, p in zip(names, ref.parameters())})
     return {"losses": losses, "grad1": grad_steps[0], "change": change, "grad_steps": grad_steps}

@@ -1,9 +1,11 @@
-"""Pieces both reference architectures share: the plastic head, the
-channel dropout, the reference's pad arithmetic, the loss and Adam."""
+"""Pieces the reference architectures share: the plastic head with its
+state and weight rule, the channel dropout, the reference's pad
+arithmetic, the loss and Adam."""
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +41,43 @@ class PlasticHead(nn.Module):
         else:
             new = hebb + self.eta * (yin - hebb * yout) * yout
         return activ, activout, new
+
+
+def zero_trace(ref: PlasticHead, batch: int, device) -> torch.Tensor:
+    """A plastic model's state at the start of each lifetime: a zero (batch, nbf, nbf) trace."""
+    return torch.zeros((batch, ref.nbf, ref.nbf), device=device)
+
+
+def plastic_init(shell: PlasticHead, generator: torch.Generator) -> dict:
+    """{key: tensor} for a plastic model's state_dict, on the generator's device.
+
+    torch's default initialisation for the published modules: every conv and
+    transposed conv weight and bias uniform in (-1/sqrt(fan_in), 1/sqrt(fan_in))
+    with fan_in = weight.shape[1] * kh * kw; the head's w = 0.01 * N(0, 1),
+    alpha = 0.01 * U(0, 1), eta = 0.01. Two draws make all of it: one
+    ``rand`` over the conv leaves in module order and then alpha, one
+    ``randn`` for w. ``shell`` may be on the meta device; only its shapes are read.
+    """
+    conv_keys, bounds, counts = [], [], []
+    for prefix, m in shell.named_modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            bound = 1.0 / math.sqrt(w.shape[1] * w.shape[2] * w.shape[3])
+            for leaf in ("weight", "bias"):
+                p = getattr(m, leaf)
+                conv_keys.append((f"{prefix}.{leaf}", tuple(p.shape)))
+                bounds.append(bound)
+                counts.append(p.numel())
+    nbf, g = shell.nbf, generator
+    device = g.device
+    u = torch.rand(sum(counts) + nbf * nbf, generator=g, device=device)
+    scale = torch.repeat_interleave(torch.tensor(bounds, device=device), torch.tensor(counts, device=device))
+    conv_vals = (2 * u[: sum(counts)] - 1) * scale
+    sd = {key: part.view(shape) for (key, shape), part in zip(conv_keys, torch.split(conv_vals, counts))}
+    sd["alpha"] = (0.01 * u[sum(counts):]).view(nbf, nbf)
+    sd["w"] = 0.01 * torch.randn((nbf, nbf), generator=g, device=device)
+    sd["eta"] = torch.full((1,), 0.01, device=device)
+    return sd
 
 
 def dropout2d(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from reference.common import PlasticHead, pad_to_match
+from reference.common import PlasticHead, pad_to_match, plastic_init, zero_trace
 
 
 class DoubleConv(nn.Module):
@@ -94,3 +94,9 @@ class UNetP(PlasticHead):
         u = self.up4(u, x1)
         out = self.outc.conv(u)
         return self.head(out.reshape(out.shape[0], self.nbf, self.nbf), hebb)
+
+
+Reference = UNetP
+PORT = "plastic_unet_tpu_torch.models.unet_classic:UNetP"
+initial_state = zero_trace
+init_weights = plastic_init

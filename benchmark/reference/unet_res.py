@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from reference.common import PlasticHead, dropout2d, pad_to_match
+from reference.common import PlasticHead, dropout2d, pad_to_match, plastic_init, zero_trace
 
 
 class ConvModule(nn.Module):
@@ -120,3 +120,9 @@ class UNetPRes(PlasticHead):
         u = self.uconv1(u, xc1, g)
         out = self.outc.conv(u)
         return self.head(out.reshape(out.shape[0], self.nbf, self.nbf), hebb)
+
+
+Reference = UNetPRes
+PORT = "plastic_unet_tpu_torch.models.unet_res:UNetPRes"
+initial_state = zero_trace
+init_weights = plastic_init

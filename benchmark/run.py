@@ -49,8 +49,8 @@ def fail(msg: str, code: int = 2) -> int:
 
 def import_everything(cell) -> list:
     """Import every module a run of ``cell`` uses: the kind's driver, the
-    port's entry points it drives, the reference, the FLOP counts and the
-    metric readers. Returns the readers."""
+    port's entry points it drives, the arch file with the port's model class
+    it names, the FLOP counts and the metric readers. Returns the readers."""
     import portbench.check  # noqa: F401
     import portbench.tracing  # noqa: F401
 
@@ -58,9 +58,10 @@ def import_everything(cell) -> list:
     import plastic_unet_tpu_torch.submit.server  # noqa: F401
     import plastic_unet_tpu_torch.train.loop  # noqa: F401
     import plastic_unet_tpu_torch.utils.precision  # noqa: F401
-    from portbench.weights import reference_class
+    from portbench.weights import port_class, reference_class
 
     reference_class(cell.config["arch"])
+    port_class(cell.config["arch"])
     cell.flops()
     return cell.readers()
 

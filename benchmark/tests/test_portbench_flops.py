@@ -42,11 +42,11 @@ def test_counts_match_the_reference_modules(flops):
     import torch
     from torch import nn
 
-    from portbench.weights import reference_class
+    from portbench.weights import arch_file
 
     for cell, arch in (("unetpres-n16.train-b1", "unet_res"), ("unetp-128.serve-r512", "unet")):
         cfg = spec.load_cell(cell).config
-        ref = reference_class(arch)(**cfg["model"])
+        ref = arch_file(arch).Reference(**cfg["model"])
         total, hooks = [0], []
 
         def count(m, inp, out):
@@ -60,5 +60,5 @@ def test_counts_match_the_reference_modules(flops):
                 hooks.append(m.register_forward_hook(count))
         s, nbf = cfg["image_size"], cfg["model"]["nbf"]
         with torch.no_grad():
-            ref.eval()(torch.zeros(1, 1, s, s), torch.zeros(1, nbf, nbf))
+            ref.eval()(torch.zeros(1, 1, s, s), arch_file(arch).initial_state(ref, 1, "cpu"))
         assert flops(arch).forward_flops(cfg) == pytest.approx(total[0] + 2 * nbf ** 3)

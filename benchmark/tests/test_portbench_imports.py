@@ -32,7 +32,10 @@ def test_run_loads_no_jax(name):
 
 
 def test_reference_loads_nothing_of_the_port():
-    names = loaded_by("import reference.unet_res, reference.unet_classic, reference.common")
+    """Every file under reference/ (each arch's, and any a later one adds)."""
+    files = sorted(str(p) for p in (BENCH / "reference").glob("*.py"))
+    assert {"common.py", "unet.py", "unet_res.py"} <= {p.rsplit("/", 1)[1] for p in files}
+    names = loaded_by(f"import runpy\nfor p in {files!r}:\n    runpy.run_path(p)")
     assert "reference" in names
     assert "plastic_unet_tpu_torch" not in names and not names & FORBIDDEN
 
